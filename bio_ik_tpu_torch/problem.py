@@ -1,0 +1,309 @@
+"""Problem compilation and fitness evaluation.
+
+Port of :mod:`bio_ik_tpu.problem` (reference: src/problem.h:118-136,
+src/problem.cpp:72-341) for the pose family: a goal list compiles into a
+deduped tip list, the active-variable set, per-kind struct-of-arrays goal
+groups whose numeric parameters live in the ``data`` dict from
+:meth:`Problem.make_data`, and the vectorized acceptance test.
+
+This slice carries the position, orientation and pose kinds.  Every other
+goal kind raises ``NotImplementedError`` at construction; they are queued
+in ROADMAP.md (port queue item 1).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import goals as G
+from .config import DEFAULT_CONFIG, SolverConfig
+from .math.frame import Frame
+from .math.quat import (
+    quat_angle_shortest,
+    quat_conj,
+    quat_mul,
+    quat_rotate,
+    quat_to_rotvec_wrapped,
+)
+from .robot.model import RobotModel
+
+__all__ = ["Problem", "GoalGroup"]
+
+_PORTED_KINDS = ("position", "orientation", "pose")
+
+
+def _norm(v):
+    v = np.asarray(v, dtype=np.float64)
+    n = np.linalg.norm(v)
+    return v / n if n > 0 else v
+
+
+@dataclass
+class GoalGroup:
+    """One vectorized batch of same-kind goals."""
+
+    kind: str
+    tip_slots: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    static: Dict[str, Any] = field(default_factory=dict)
+    params: Dict[str, np.ndarray] = field(default_factory=dict)
+    weight_sq: np.ndarray = field(default_factory=lambda: np.zeros(0))
+    # acceptance classification (reference: problem.cpp:153-176)
+    goal_type: str = "unknown"
+
+    @property
+    def count(self) -> int:
+        return len(self.weight_sq)
+
+
+class Problem:
+    """A compiled IK problem for one robot + goal structure."""
+
+    def __init__(
+        self,
+        model: RobotModel,
+        goal_list: Sequence[G.Goal],
+        fixed_joints: Sequence[str] = (),
+        active_variables: Optional[Sequence[int]] = None,
+        config: SolverConfig = DEFAULT_CONFIG,
+    ):
+        self.model = model
+        self.config = config
+        self.device = model.device
+        self.goal_list = list(goal_list)
+        self.dtype = np.dtype(config.dtype)
+        self.tdtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+
+        tip_links: List[str] = []
+
+        def tip_slot(link: str) -> int:
+            if link not in model.link_index:
+                raise ValueError(f"unknown link {link!r}")
+            if link not in tip_links:
+                tip_links.append(link)
+            return tip_links.index(link)
+
+        if active_variables is None:
+            active = list(model.actuated_variables(exclude_fixed_joints=fixed_joints))
+        else:
+            active = list(active_variables)
+        self.active_vars = active
+        V = len(active)
+        av = np.asarray(active, dtype=np.int64)
+
+        b = model._np_bounds
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x).astype(self.dtype),
+                                   device=self.device)
+
+        self.amin = dev(b["min"][av])
+        self.amax = dev(b["max"][av])
+        self.aclip_min = dev(b["clip_min"][av])
+        self.aclip_max = dev(b["clip_max"][av])
+        self.aspan = dev(b["span"][av])
+        self.amid = dev(0.5 * (b["min"][av] + b["max"][av]))
+        self.abounded = dev(np.isfinite(b["clip_max"][av]))
+        # velocity-normalized displacement factors (reference:
+        # problem.cpp:206-225)
+        rcp = b["max_velocity_rcp"][av]
+        s = rcp.sum()
+        self.velocity_weights = dev(
+            rcp / s if s > 0 else np.full(V, 1.0 / max(V, 1)))
+
+        self.primary: List[GoalGroup] = []
+        self.secondary: List[GoalGroup] = []
+        pending: Dict[Tuple[str, bool], List[Tuple[G.Goal, int]]] = {}
+        for g in self.goal_list:
+            kind = _KIND_OF.get(type(g))
+            if kind not in _PORTED_KINDS:
+                raise NotImplementedError(
+                    f"goal kind {kind or type(g).__name__!r} is not ported yet "
+                    "(ROADMAP.md, port queue item 1: non-pose goal kinds and "
+                    "secondary goals)")
+            if g.secondary:
+                raise ValueError(
+                    f"secondary goals must be joint-space goals, got {type(g).__name__}")
+            slot = tip_slot(g.link)
+            pending.setdefault((kind, g.secondary), []).append((g, slot))
+
+        for (kind, secondary), items in pending.items():
+            grp = _BUILDERS[kind](items)
+            grp.kind = kind
+            grp.goal_type = kind
+            (self.secondary if secondary else self.primary).append(grp)
+
+        self.tip_links = tip_links
+        self.ntips = len(tip_links)
+        self.dpos = config.dpos
+        self.drot = config.drot
+        self.dtwist = config.dtwist
+
+    # ------------------------------------------------------------------
+    def make_data(self, q_seed_full) -> Dict[str, Any]:
+        """Numeric data dict for one solve (reference: problem.initial_guess,
+        kinematics_plugin.cpp:506-507); callers may replace entries or stack
+        a leading scenario-batch axis on every leaf."""
+        q = torch.as_tensor(q_seed_full, device=self.device).to(self.tdtype)
+        av = torch.as_tensor(self.active_vars, dtype=torch.long, device=self.device)
+
+        def group_data(grp):
+            d = {k: torch.as_tensor(v.astype(self.dtype), device=self.device)
+                 for k, v in grp.params.items()}
+            d["weight_sq"] = torch.as_tensor(grp.weight_sq.astype(self.dtype),
+                                             device=self.device)
+            return d
+
+        return {
+            "seed_full": q,
+            "seed_active": q[..., av],
+            "primary": [group_data(g) for g in self.primary],
+            "secondary": [group_data(g) for g in self.secondary],
+        }
+
+    # ------------------------------------------------------------------
+    def fitness(self, tips, qa, data):
+        """Primary fitness ``Σ weight²·e`` (reference: problem.cpp:251-257);
+        ``tips (..., T, 7)`` packed, ``qa (..., V)``."""
+        total = torch.zeros(qa.shape[:-1], dtype=self.tdtype, device=qa.device)
+        for grp, gdata in zip(self.primary, data["primary"]):
+            e = _EVALUATORS[grp.kind](grp, gdata, tips)
+            total = total + torch.sum(gdata["weight_sq"] * e, dim=-1)
+        return total
+
+    def fitness_secondary(self, qa, data):
+        """Secondary fitness; zero, since this slice has no secondary goals
+        (ROADMAP.md, port queue item 1)."""
+        return torch.zeros(qa.shape[:-1], dtype=self.tdtype, device=qa.device)
+
+    @property
+    def has_secondary(self) -> bool:
+        return bool(self.secondary)
+
+    # ------------------------------------------------------------------
+    def check_solution(self, tips_frame: Frame, qa, data):
+        """Vectorized tolerance acceptance test (reference:
+        checkSolutionActiveVariables, problem.cpp:259-341).  ``tips_frame``
+        must come from exact FK."""
+        dpos, drot, dtwist = self.dpos, self.drot, self.dtwist
+        ok = torch.ones(tips_frame.pos.shape[:-2], dtype=torch.bool,
+                        device=tips_frame.pos.device)
+        for grp, gdata in zip(self.primary, data["primary"]):
+            slots = torch.as_tensor(grp.tip_slots, device=ok.device)
+            tp = tips_frame.pos[..., slots, :]
+            tq = tips_frame.quat[..., slots, :]
+            if grp.goal_type in ("position", "pose") and math.isfinite(dpos):
+                dp = tp - gdata["position"]
+                ok &= torch.all(torch.linalg.vector_norm(dp, dim=-1) <= dpos,
+                                dim=-1)
+            if grp.goal_type in ("orientation", "pose") and math.isfinite(drot):
+                ang = quat_angle_shortest(tq, gdata["orientation"]) * (
+                    180.0 / math.pi)
+                ok &= torch.all(ang <= drot, dim=-1)
+            if math.isfinite(dtwist):
+                # twist of goal⁻¹·tip in goal coordinates, component-wise
+                # |·| ≤ dtwist (KDL::Equal semantics; reference
+                # problem.cpp:276-322, frame.h:240-259)
+                gq = gdata.get("orientation")
+                gp = gdata.get("position")
+                if gq is None:
+                    comps = [tp - gp]
+                else:
+                    gq_inv = quat_conj(gq)
+                    rot = quat_to_rotvec_wrapped(quat_mul(gq_inv, tq))
+                    if grp.goal_type == "pose":
+                        comps = [quat_rotate(gq_inv, tp - gp), rot]
+                    else:
+                        comps = [rot]
+                for c in comps:
+                    ok &= torch.all(torch.abs(c) <= dtwist, dim=-1).all(dim=-1)
+        return ok
+
+
+# ==========================================================================
+# goal kind registry (pose family)
+# ==========================================================================
+
+_KIND_OF = {
+    G.PositionGoal: "position",
+    G.OrientationGoal: "orientation",
+    G.PoseGoal: "pose",
+    G.LookAtGoal: "lookat",
+    G.MaxDistanceGoal: "max_distance",
+    G.MinDistanceGoal: "min_distance",
+    G.LineGoal: "line",
+    G.PlaneGoal: "plane",
+    G.TouchGoal: "touch",
+    G.SideGoal: "side",
+    G.DirectionGoal: "direction",
+    G.ConeGoal: "cone",
+    G.LinkFunctionGoal: "link_function",
+    G.AvoidJointLimitsGoal: "avoid_joint_limits",
+    G.CenterJointsGoal: "center_joints",
+    G.RegularizationGoal: "regularization",
+    G.MinimalDisplacementGoal: "minimal_displacement",
+    G.JointVariableGoal: "joint_variable",
+    G.JointFunctionGoal: "joint_function",
+    G.BalanceGoal: "balance",
+}
+
+
+def _simple_group(items, **param_fns) -> GoalGroup:
+    grp = GoalGroup(kind="")
+    grp.tip_slots = np.asarray([slot for _, slot in items], dtype=np.int64)
+    grp.weight_sq = np.asarray([g.weight**2 for g, _ in items])
+    for name, fn in param_fns.items():
+        grp.params[name] = np.stack([np.asarray(fn(g), np.float64) for g, _ in items])
+    return grp
+
+
+_BUILDERS = {
+    "position": lambda items: _simple_group(items, position=lambda g: g.position),
+    "orientation": lambda items: _simple_group(
+        items, orientation=lambda g: _norm(g.orientation)),
+    "pose": lambda items: _simple_group(
+        items,
+        position=lambda g: g.position,
+        orientation=lambda g: _norm(g.orientation),
+        rotation_scale_sq=lambda g: g.rotation_scale**2,
+    ),
+}
+
+
+def _tip_pq(tips, grp):
+    slots = torch.as_tensor(grp.tip_slots, device=tips.device)
+    return tips[..., slots, 0:3], tips[..., slots, 3:7]
+
+
+def _quat_err_sq(tq, gq):
+    dm = torch.sum(torch.square(tq - gq), dim=-1)
+    dp = torch.sum(torch.square(tq + gq), dim=-1)
+    return torch.minimum(dm, dp)
+
+
+def _eval_position(grp, gdata, tips):
+    tp, _ = _tip_pq(tips, grp)
+    return torch.sum(torch.square(tp - gdata["position"]), dim=-1)
+
+
+def _eval_orientation(grp, gdata, tips):
+    _, tq = _tip_pq(tips, grp)
+    return _quat_err_sq(tq, gdata["orientation"])
+
+
+def _eval_pose(grp, gdata, tips):
+    tp, tq = _tip_pq(tips, grp)
+    ep = torch.sum(torch.square(tp - gdata["position"]), dim=-1)
+    er = _quat_err_sq(tq, gdata["orientation"])
+    return ep + gdata["rotation_scale_sq"] * er
+
+
+_EVALUATORS = {
+    "position": _eval_position,
+    "orientation": _eval_orientation,
+    "pose": _eval_pose,
+}
