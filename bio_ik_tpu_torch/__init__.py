@@ -2,9 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its module
 names and layout so each counterpart is easy to find.  Plain tensor code
-is PyTorch; the fused bio2 megastep, a Pallas kernel in the reference, is
-a hand-written CUDA kernel (``csrc/megastep.cu``) with a plain torch
-version beside it that the CPU runs.  Entry points run on the card unless
+is PyTorch; the fused bio2 megastep and species step, Pallas kernels in the
+reference, are hand-written CUDA kernels (``csrc/megastep.cu``,
+``csrc/species.cu``), each with a plain torch version beside it that the
+CPU runs.  Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
 

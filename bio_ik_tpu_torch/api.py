@@ -2,8 +2,9 @@
 
 Port of :mod:`bio_ik_tpu.api` for the batched throughput path
 (reference: src/kinematics_plugin.cpp:437-655, src/ik_parallel.h:90-277):
-``IKSolver.solve_batch`` on the fused megastep engine and
-``AdaptiveBatchSolver``'s on-device multi-phase pipeline.  ``solve``,
+``IKSolver.solve_batch`` on the fused engine (its fullstep tier for
+revolute/prismatic chains, its species tier for floating/planar ones) and
+``AdaptiveBatchSolver``'s on-device multi-phase pipeline over either tier.  ``solve``,
 ``search``, the unfused solvers and ``elite_migration`` wait for ROADMAP.md
 port queue item 5, ``solve_until`` for item 2.
 """
@@ -156,8 +157,9 @@ class AdaptiveBatchSolver:
                 for i in range(len(phases) - 1)
             )
         self.fractions = fractions
-        # each phase checks acceptance once, at its end: one megastep
-        # launch per phase
+        # each phase checks acceptance once, at its end (one megastep
+        # launch per phase on the fullstep tier; max_steps species
+        # launches on the species tier)
         self.solvers = [
             IKSolver(model, goal_list,
                      config.replace(islands=i, max_steps=s, steps_per_check=s),

@@ -80,8 +80,9 @@ def philox_words(seed: int, lane, step: int, gen: int, idx, salt):
 
 def u01_from_bits(bits, lo=0.0):
     """Uniform in ``[lo, lo+1)`` from the top 24 bits (as
-    ``make_rng_helpers`` in the JAX package)."""
-    return (bits >> 8).to(torch.float32) * _INV24 + lo
+    ``make_rng_helpers`` in the JAX package) of 32-bit words held in int64
+    or in int32 (the mask undoes int32's sign-extending shift)."""
+    return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * _INV24 + lo
 
 
 def rate_from_bits(bits):

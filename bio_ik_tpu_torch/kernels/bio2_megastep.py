@@ -42,7 +42,10 @@ from .bio2_step import SpeciesParams, _P
 from .fk_rows import FkRows
 
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "Megastep",
-           "megastep_flops_per_lane"]
+           "megastep_flops_per_lane", "MEGASTEP_SHAPES"]
+
+# (V, K, T) instances of csrc/megastep.cu (its SHAPES macro)
+MEGASTEP_SHAPES = ((7, 1, 1), (6, 1, 1))
 
 _WIPEOUT_P = 0.1  # reference: ik_evolution_2.cpp:632
 _WIPE_GEN = 0xFFFFFFFF  # Philox generation word of a step's wipeout draws
@@ -235,7 +238,8 @@ class Megastep:
         if not lib.megastep_has_shape(sp.V, sp.K, self.T):
             raise ValueError(
                 f"the megastep kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu)")
+                f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu; "
+                "ROADMAP.md, port queue item 9)")
 
         def check(t, rows, name, dtype=torch.float32):
             if t.device != dev or t.dtype != dtype or not t.is_contiguous() \

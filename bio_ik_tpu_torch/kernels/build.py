@@ -8,8 +8,9 @@ use into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-``-Xptxas -v`` reports each kernel's registers and spills; the report is
-kept beside the library as ``<name>.ptxas.txt``.  Nothing here runs at
+plus the source's own flags in :data:`EXTRA_FLAGS`.  ``-Xptxas -v``
+reports each kernel's registers and spills; the report is kept beside the
+library as ``<name>.ptxas.txt``.  Nothing here runs at
 import time: the CPU tests import every module and have no ``nvcc``.
 """
 
@@ -32,7 +33,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# per-source flags: the species kernel keeps the plain version's rounding
+# (no FMA contraction; see the note at the top of csrc/species.cu)
+EXTRA_FLAGS = {"species": ["-fmad=false"]}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def _nvcc() -> str:
@@ -45,7 +54,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -53,7 +62,7 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = _target(name)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -1,5 +1,5 @@
-"""Kernel self-checks: megastep inputs from a seed, and lane-by-lane
-agreement.
+"""Kernel self-checks: megastep and species-step inputs from a seed, and
+lane-by-lane agreement.
 
 Port of :mod:`bio_ik_tpu.kernels.checks`, shared by the CPU tests (plain
 torch version against the JAX body) and ``chip_smoke.py`` (CUDA kernel
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["megastep_inputs", "lane_agreement", "max_abs_err"]
+__all__ = ["megastep_inputs", "species_inputs", "lane_agreement", "max_abs_err"]
 
 
 def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
@@ -80,6 +80,57 @@ def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
         rng.uniform(size=(n_steps, V, N)).astype(f32),
     )
     return state, consts, noise
+
+
+def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
+                   spread: float = 1e-3):
+    """numpy arguments of one species step (:class:`SpeciesKernel` order)
+    on ``N`` lanes of ``model``/``tip`` with every variable active (K = 1),
+    made from ``seed``: a solve under way as in :func:`megastep_inputs` —
+    one reachable target per species pair (exact FK of a uniform q* whose
+    quaternion blocks are normalized), both parents ``spread`` off it —
+    then ``tips0``/``deltas`` from the port's linearizer at parent 0, pose
+    weights of bench.py's goal (so both fitness terms are exercised), the
+    model's bounds, and noise and rates with the real rate ladder."""
+    from ..kinematics import make_fk, make_linearizer
+
+    V, K = sp.V, sp.K
+    if V != model.nvars or K != 1:
+        raise ValueError("species_inputs wants every variable active and K = 1")
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    b = model._np_bounds
+    qstar = rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V))
+    for s in sp.quat_slices:
+        qstar[:, s:s + 4] /= np.linalg.norm(qstar[:, s:s + 4], axis=1,
+                                            keepdims=True)
+    qstar = np.repeat(qstar, 2, axis=0)[:N].astype(f32)
+    tg = make_fk(model, [tip], device="cpu")(torch.from_numpy(qstar))
+    genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
+    genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
+                    np.tile(b["clip_max"], 2)[:, None]).astype(f32)
+    tips0, deltas = make_linearizer(model, [tip], list(range(V)))(
+        torch.from_numpy(np.ascontiguousarray(genes[:V].T)))
+    # (N, T=1, V, 7) → rows v·7 + d
+    deltas = deltas[:, 0].reshape(N, V * 7).T
+
+    def rows(x):
+        return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
+
+    k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
+    return (
+        genes,
+        (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
+        np.ascontiguousarray(tips0[:, 0].numpy().T),
+        np.ascontiguousarray(deltas.numpy()),
+        np.ascontiguousarray(tg.pos[:, 0].numpy().T),
+        np.ascontiguousarray(tg.quat[:, 0].numpy().T),
+        np.ones((K, N), f32),
+        np.full((K, N), 0.25, f32),
+        rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
+        rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
+        np.exp2(k - 23.0).astype(f32),
+    )
 
 
 def lane_agreement(outs_a, outs_b, rtol=1e-5, atol=1e-6):

@@ -1,9 +1,9 @@
 """Shared per-problem machinery.
 
 Port of :class:`bio_ik_tpu.solvers.base.SolverContext` (reference:
-src/ik_base.h:128-214), FK only: the linearizer and Jacobian
-(``kinematics/approx.py``) arrive with the species tier (ROADMAP.md, port
-queue item 3), and the solver registry with the unfused solvers (item 5).
+src/ik_base.h:128-214): FK, the tip-frame linearizer and the Jacobian
+(``kinematics/approx.py``).  The solver registry arrives with the unfused
+solvers (ROADMAP.md, port queue item 5).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kinematics import make_fk
+from ..kinematics import make_fk, make_jacobian, make_linearizer
 from ..math.frame import Frame
 from ..problem import Problem
 
@@ -29,7 +29,14 @@ class SolverContext:
         self.nvars = len(self.av)
         self.ntips = problem.ntips
         self.dtype = problem.dtype
-        self.fk = make_fk(model, problem.tip_links) if problem.tip_links else None
+        if problem.tip_links:
+            self.fk = make_fk(model, problem.tip_links)
+            self.linearize = make_linearizer(model, problem.tip_links,
+                                             problem.active_vars)
+            self.jacobian = make_jacobian(model, problem.tip_links,
+                                          problem.active_vars)
+        else:
+            self.fk = self.linearize = self.jacobian = None
 
     def qfull(self, seed_full, qa):
         """Scatter active values into the full variable vector (reference:

@@ -4,12 +4,15 @@
     python3 chip_smoke.py                  # every phase (what CI runs)
     python3 chip_smoke.py --only build,check
 
-Drives ``bio_ik_tpu_torch`` (never JAX) through its main path and holds the
-hand-written CUDA kernel against its plain torch version.  Phases, each
-printing one JSON line; any failure raises and exits non-zero:
+Drives ``bio_ik_tpu_torch`` (never JAX) through its two paths — the
+fullstep tier (bench.py's configuration) and the species tier (floating and
+planar chains) — and holds each hand-written CUDA kernel against its plain
+torch version.  Phases, each printing one JSON line; any failure raises and
+exits non-zero:
 
   1. build    — card name and power limit, torch/CUDA versions, nvcc build
-                of every kernel source (in parallel) and its ptxas report;
+                of every kernel source (megastep.cu, species.cu, in
+                parallel) and their ptxas reports;
   2. check    — megastep kernel vs plain version in noise-tensor mode at the
                 main path's sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8,
                 n_steps=2, N=4096): ≥ 85 % of lanes agree (beside the
@@ -25,10 +28,24 @@ printing one JSON line; any failure raises and exits non-zero:
                 launches per solve_batch (must be 4), determinism, the
                 success flags re-derived from the returned q, and a small
                 solve on the card beside the same on the CPU plain path;
-  5. times    — the kernel at each phase's launch shape (CUDA events) and
-                the plain version at phase 1, beside the FLOP/byte bound;
-  6. profile  — torch.profiler over one solve_batch of the main path:
-                device time by kernel, device busy and idle share.
+  5. species_check — species kernel vs plain version on identical noise
+                tensors (free_arm, V=10, at the species path's 524 288 lanes;
+                planar_arm, V=5, at its 131 072): ≥ 85 % of lanes agree,
+                beside the plain version on the CPU vs the card at 4 096
+                lanes and the agreement per stage (generations only,
+                memetic only);
+  6. species_main — the JAX suite's free_arm_floating_base row (one
+                PositionGoal on "tool", bio2_memetic, dpos 5e-3, 16 steps,
+                4 islands) through IKSolver.solve_batch at B = 65 536, then
+                planar_arm at B = 16 384: success, median position error,
+                solves/s, species launches per solve_batch (must be 16),
+                determinism, success flags re-derived from the returned q,
+                the share of unit floating quaternions, peak memory;
+  7. times    — the megastep at each phase's launch shape and the species
+                kernel at its launch shape (CUDA events), each beside its
+                plain version and its FLOP/byte bound;
+  8. profile  — torch.profiler over one solve_batch of each path: device
+                time by kernel, device busy and idle share.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -48,6 +65,10 @@ PHASES = ((1, 24), (2, 32), (4, 64), (8, 32))
 FRACTIONS = (0.15, 0.03, 0.008)
 B_MAIN = 65536
 QUEUE, REPEATS = 16, 3      # bench.py: 16 batches queued, best of 3
+# species tier: (urdf, batch, quaternion gene slices); tip "tool"
+SPECIES_PATHS = (("free_arm.urdf", 65536, (3,)), ("planar_arm.urdf", 16384, ()))
+SPECIES_QUEUE = 4
+SPECIES_ISLANDS = 4
 # H100 SXM published peaks (NVIDIA's data sheet, 700 W): FP32 outside the
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -98,17 +119,23 @@ class Smoke:
         self.model = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"))
         self.cpu_model = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"),
                                                    device="cpu")
-        self.kernels = {}
+        self.sp_models = {u: RobotModel.from_urdf_file(asset_path(u))
+                          for u, _, _ in SPECIES_PATHS}
+        self.sp_cpu_models = {u: RobotModel.from_urdf_file(asset_path(u),
+                                                           device="cpu")
+                              for u, _, _ in SPECIES_PATHS}
+        self.kernels = {"megastep": {}, "species": {}}
 
     # -------------------------------------------------------------- 1 --
     def build(self):
         import torch
         from bio_ik_tpu_torch.kernels.build import build_all, ptxas_report
 
-        secs = build_all(["megastep"])
+        secs = build_all(["megastep", "species"])
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": secs,
-              "ptxas": ptxas_report("megastep").strip().splitlines()})
+              "ptxas": {n: ptxas_report(n).strip().splitlines()
+                        for n in ("megastep", "species")}})
 
     def _mega(self, n_steps, gens=8, mem_iters=8, memetic="q"):
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
@@ -185,8 +212,8 @@ class Smoke:
                                  f"{frac:.3f} of lanes (< 0.85)")
         if not (err_tips <= 1e-5 and err_fit <= 1e-5):
             raise AssertionError(f"exact FK/fitness disagree: {err_tips}, {err_fit}")
-        self.kernels["agree_frac"] = frac
-        self.kernels["max_abs_err"] = max(err_tips, err_fit)
+        self.kernels["megastep"].update(agree_frac=frac,
+                                        max_abs_err=max(err_tips, err_fit))
 
     # -------------------------------------------------------------- 3 --
     def rng(self):
@@ -326,7 +353,7 @@ class Smoke:
                "small_solve_success_gpu_cpu": [float(rg.success.float().mean()),
                                                float(rc.success.float().mean())]}
         emit(out)
-        self.kernels["launches"] = launches
+        self.kernels["megastep"]["launches"] = launches
         if launches != len(PHASES):
             raise AssertionError(f"{launches} megastep launches per solve_batch")
         if not det:
@@ -336,15 +363,176 @@ class Smoke:
         if not (success >= 0.999 and med <= 1.7e-6 and np.isfinite(med)):
             raise AssertionError(f"quality below the JAX path's: {out}")
 
-    # -------------------------------------------------------------- 6 --
-    def profile(self):
-        """Where one solve_batch of the main path spends device time:
-        torch.profiler over a warm call, device time by kernel name, and
-        the device's busy share of the host-clock wall time."""
+    # -------------------------------------------------------------- 5 --
+    def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None):
+        """A SpeciesKernel of the robot's species path and one step's
+        arguments on ``N`` lanes (kernels/checks.species_inputs)."""
+        from bio_ik_tpu_torch.interop import tree_from_numpy
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel, SpeciesParams
+        from bio_ik_tpu_torch.kernels.checks import species_inputs
+
+        qs = dict((u, q) for u, _, q in SPECIES_PATHS)[urdf]
+        model = self.sp_cpu_models[urdf]
+        sp = SpeciesParams(V=model.nvars, K=1, gens=gens, mem_iters=mem_iters,
+                           memetic=memetic, quat_slices=qs)
+        args = species_inputs(model, "tool", sp, N)
+        return SpeciesKernel(sp), tree_from_numpy(args, dev or self.dev)
+
+    def species_check(self):
         import torch
+        from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
+
+        out = {"phase": "species_check"}
+        for urdf, B, _ in SPECIES_PATHS:
+            N = B * SPECIES_ISLANDS * 2
+            kern, args = self._species_args(urdf, N)
+            k_out = kern(*args)
+            p_out = kern.inner(*args)
+            torch.cuda.synchronize()
+            agree = lane_agreement(k_out, p_out)
+            frac = float(agree.float().mean())
+            err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
+            out[urdf] = {"lanes": N, "agree_frac": frac,
+                         "agree_max_abs_err": err,
+                         "bitwise_frac": float(torch.stack(
+                             [(a == b).reshape(-1, N).all(0)
+                              for a, b in zip(k_out, p_out)]).all(0)
+                             .float().mean())}
+            if urdf == SPECIES_PATHS[0][0]:
+                self.kernels["species"].update(agree_frac=frac, max_abs_err=err)
+            del args, k_out, p_out
+            if frac < 0.85:
+                emit(out)
+                raise AssertionError(f"species kernel agrees with the plain "
+                                     f"version on {frac:.3f} of lanes of "
+                                     f"{urdf} (< 0.85)")
+        # the floor between two correct versions: the plain version on the
+        # CPU against itself on the card (4 096 lanes)
+        urdf = SPECIES_PATHS[0][0]
+        kern, cargs = self._species_args(urdf, 4096, dev="cpu")
+        c_out = kern.inner(*cargs)
+        g_out = kern.inner(*(a.to(self.dev) for a in cargs))
+        out["plain_cpu_vs_card_agree_frac"] = float(
+            lane_agreement(c_out, g_out).float().mean())
+        # agreement by stage, kernel vs plain version, 65 536 lanes
+        stages = {}
+        for label, gens, mem, memetic in (("generations", 8, 0, ""),
+                                          ("memetic_q", 0, 8, "q"),
+                                          ("memetic_l", 0, 8, "l")):
+            kern, args = self._species_args(urdf, 65536, gens, mem, memetic)
+            stages[label] = float(lane_agreement(kern(*args), kern.inner(*args))
+                                  .float().mean())
+        out["agree_by_stage"] = stages
+        emit(out)
+
+    # -------------------------------------------------------------- 6 --
+    def _species_bench(self, urdf, B):
+        """The JAX suite's floating-base row on ``urdf`` at batch ``B``:
+        targets from FK of numpy.random.default_rng(0) uniform draws in the
+        bounds, seeded at neutral_q()."""
+        import numpy as np
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import IKSolver, SolverConfig, make_fk
+        from bio_ik_tpu_torch.interop import tree_map
+
+        model = self.sp_models[urdf]
+        dev = model.device
+        fk = make_fk(model, ["tool"])
+        b = model._np_bounds
+        qg = np.random.default_rng(0).uniform(
+            b["min"], b["max"], size=(B, model.nvars)).astype(np.float32)
+        tg = fk(torch.as_tensor(qg, device=dev))
+        s = IKSolver(model, [G.PositionGoal(link="tool")],
+                     SolverConfig(mode="bio2_memetic", dpos=5e-3,
+                                  dtwist=float("inf"), max_steps=16,
+                                  islands=SPECIES_ISLANDS))
+        data = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
+                        s.make_data(torch.as_tensor(model.neutral_q())))
+        data["primary"][0]["position"] = tg.pos.contiguous()
+        keys = torch.stack([torch.zeros(B, dtype=torch.int64),
+                            torch.arange(B, dtype=torch.int64)], -1).to(dev)
+        return s, data, keys, fk, tg
+
+    def species_main(self):
+        import numpy as np
+        import torch
+        from bio_ik_tpu_torch.engine import fold_in
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel
+        from bio_ik_tpu_torch.robot.urdf import FLOATING
+
+        for urdf, B, _ in SPECIES_PATHS:
+            s, data, keys, fk, tg = self._species_bench(urdf, B)
+            assert not s.engine.fullstep
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = s.solve_batch(keys, data)          # warm-up
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            SpeciesKernel.launches = 0
+            res = s.solve_batch(keys, data)
+            torch.cuda.synchronize()
+            launches = SpeciesKernel.launches
+            res2 = s.solve_batch(keys, data)
+            det = all(torch.equal(a, b) for a, b in zip(res, res2))
+            peak = torch.cuda.max_memory_allocated()
+            times = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                for r in range(SPECIES_QUEUE):
+                    s.solve_batch(fold_in(keys, 1000 + r), data)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / SPECIES_QUEUE)
+            dt = min(times)
+            success = float(res.success.float().mean())
+            perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
+            med = float(perr.median())
+            p = s.problem
+            qa = res.q[:, torch.as_tensor(p.active_vars, device=res.q.device)]
+            recheck = p.check_solution(fk(res.q), qa, data)
+            flags_agree = float((recheck == res.success).float().mean())
+            model = self.sp_models[urdf]
+            qnorm_share = None
+            for li in range(model.nlinks):
+                if model.jtype[li] == FLOATING:
+                    vs = int(model.vstart[li])
+                    qn = res.q[:, vs + 3:vs + 7].norm(dim=-1)
+                    qnorm_share = float(((qn - 1).abs() <= 1e-2).float().mean())
+            out = {"phase": "species_main", "robot": urdf, "batch": B,
+                   "lanes": B * SPECIES_ISLANDS * 2, "success_rate": success,
+                   "median_pos_err_m": med, "solves_per_s": B * success / dt,
+                   "batch_time_ms": dt * 1e3,
+                   "times_ms": [t * 1e3 for t in times], "first_call_s": first_s,
+                   "launches_per_solve_batch": launches, "deterministic": det,
+                   "success_flags_recheck_agree": flags_agree,
+                   "unit_quat_share": qnorm_share,
+                   "peak_mem_gb": peak / 1e9,
+                   "peak_mem_above_inputs_gb": (peak - base_mem) / 1e9}
+            emit(out)
+            if urdf == SPECIES_PATHS[0][0]:
+                self.kernels["species"]["launches"] = launches
+            if launches != 16:
+                raise AssertionError(f"{launches} species launches per solve_batch")
+            if not det:
+                raise AssertionError("two runs with the same keys differ")
+            if flags_agree < 0.999:
+                raise AssertionError(f"success flags disagree with a re-check: {out}")
+            if not (success >= 0.999 and med <= 5e-4 and np.isfinite(med)):
+                raise AssertionError(f"species-tier quality below the limits: {out}")
+            del s, data, res, res2
+            torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- 8 --
+    @staticmethod
+    def _profile(s, data, keys):
+        """torch.profiler over one warm solve_batch: device time by kernel
+        name and the device's busy share of the host-clock wall time."""
+        import torch
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        s, data, keys, _, _ = self._bench(self.model, B_MAIN)
         s.solve_batch(keys, data)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -354,21 +542,31 @@ class Smoke:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
-        def dev_us(e, self_only):
-            name = "self_device_time_total" if self_only else "device_time_total"
-            return getattr(e, name, 0.0) or 0.0
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", 0.0) or 0.0
 
-        ev = [e for e in prof.key_averages() if dev_us(e, True) > 0]
-        busy_us = sum(dev_us(e, True) for e in ev)
-        top = sorted(ev, key=lambda e: -dev_us(e, True))[:10]
-        emit({"phase": "profile", "wall_ms": wall_us / 1e3,
-              "device_busy_ms": busy_us / 1e3,
-              "device_idle_share": 1.0 - busy_us / wall_us,
-              "device_ops": len(ev),
-              "top": [{"name": e.key[:80], "ms": dev_us(e, True) / 1e3,
-                       "count": e.count} for e in top]})
+        # device events only (the kernels): an aten op's self device time
+        # repeats the time of the kernels it launched
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        busy_us = sum(dev_us(e) for e in ev)
+        top = sorted(ev, key=lambda e: -dev_us(e))[:10]
+        return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                "device_idle_share": 1.0 - busy_us / wall_us,
+                "device_ops": len(ev),
+                "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                         "count": e.count} for e in top]}
 
-    # -------------------------------------------------------------- 5 --
+    def profile(self):
+        """Where one solve_batch of each path spends device time."""
+        s, data, keys, _, _ = self._bench(self.model, B_MAIN)
+        emit({"phase": "profile", "path": "main", **self._profile(s, data, keys)})
+        urdf, B, _ = SPECIES_PATHS[0]
+        s, data, keys, _, _ = self._species_bench(urdf, B)
+        emit({"phase": "profile", "path": "species", "robot": urdf, "batch": B,
+              **self._profile(s, data, keys)})
+
+    # -------------------------------------------------------------- 7 --
     def times(self):
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
@@ -427,13 +625,74 @@ class Smoke:
         emit({"phase": "times", "megastep": rows, "plain_phase1_ms": plain_ms,
               "rng_split": split, "gpu": smi_line()})
         r0 = rows[0]
-        self.kernels.update(ms=r0["ms"], plain_ms=plain_ms,
-                            bound_ms=r0["bound_ms"], bound_by=r0["bound_by"])
+        self.kernels["megastep"].update(
+            ms=r0["ms"], plain_ms=plain_ms, bound_ms=r0["bound_ms"],
+            bound_by=r0["bound_by"])
+        self._species_times()
+        self._unported_bounds()
+
+    @staticmethod
+    def _unported_bounds():
+        """Bounds of the TPU kernels not ported yet, from their TPU cost
+        estimates (arithmetic only): the fullstep kernel for one step at
+        phase 1's lanes with noise tensors (bio2_fullstep.py:681-682,
+        :705-706; no fixed rows on PR2)."""
+        from bio_ik_tpu_torch.kernels.bio2_megastep import megastep_flops_per_lane
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
+
+        sp = SpeciesParams(V=7, K=1)
+        N = phase_shapes()[0][0]
+        flops = megastep_flops_per_lane(sp, 1) * N
+        nbytes = 4 * N * (sp.gens * sp.V * sp.C + sp.gens * sp.C
+                          + 4 * 2 * sp.V + 3 * sp.V)
+        ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        emit({"phase": "times", "unported": [
+            {"name": "make_fullstep_kernel", "lanes": N, "V": sp.V,
+             "gflop": flops / 1e9, "bytes": nbytes,
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"},
+            {"name": "vpu_peak_flops", "bound_ms": None,
+             "why": "a peak calibration: its work is its loop count"}]})
+
+    def _species_times(self):
+        """The species kernel at each species path's launch shape (CUDA
+        events, 10 launches) and its plain version (one launch), beside the
+        bound from the TPU cost model's counts."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_step import (
+            species_bytes_per_lane, species_flops_per_lane)
+
+        rows = []
+        for urdf, B, _ in SPECIES_PATHS:
+            N = B * SPECIES_ISLANDS * 2
+            kern, args = self._species_args(urdf, N)
+            run = lambda: kern(*args)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            ms = cuda_ms(run, 10)
+            kern.inner(*args)
+            torch.cuda.synchronize()
+            plain_ms = cuda_ms(lambda: kern.inner(*args), 1)
+            flops = species_flops_per_lane(kern.sp) * N
+            nbytes = species_bytes_per_lane(kern.sp) * N
+            ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            rows.append({"robot": urdf, "lanes": N, "V": kern.sp.V, "ms": ms,
+                         "plain_ms": plain_ms, "gflop": flops / 1e9,
+                         "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+                         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                         "achieved_gb_s": nbytes / ms / 1e6})
+            del args
+        emit({"phase": "times", "species": rows, "gpu": smi_line()})
+        r0 = rows[0]
+        self.kernels["species"].update(
+            ms=r0["ms"], plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+            bound_by=r0["bound_by"])
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="build,check,rng,main,times,profile",
+    ap.add_argument("--only", default="build,check,rng,main,species_check,"
+                    "species_main,times,profile",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
@@ -452,20 +711,16 @@ def main():
     for name in phases:
         getattr(smoke, name)()
     k = smoke.kernels
-    emit({"kernels": [{
-        "name": "megastep",
-        "route": "cuda",
-        "source": "bio_ik_tpu_torch/csrc/megastep.cu",
-        "replaces": "bio_ik_tpu/kernels/bio2_megastep.py:321",
-        "launches": k.get("launches"),
-        "max_abs_err": k.get("max_abs_err"),
-        "agree_frac": k.get("agree_frac"),
-        "ms": k.get("ms"),
-        "plain_ms": k.get("plain_ms"),
-        "bound_ms": k.get("bound_ms"),
-        "bound_by": k.get("bound_by"),
-        "library_ms": None,
-    }]})
+    emit({"kernels": [dict(
+        name=name, route="cuda", source=f"bio_ik_tpu_torch/csrc/{name}.cu",
+        replaces=replaces, launches=k[name].get("launches"),
+        max_abs_err=k[name].get("max_abs_err"),
+        agree_frac=k[name].get("agree_frac"), ms=k[name].get("ms"),
+        plain_ms=k[name].get("plain_ms"), bound_ms=k[name].get("bound_ms"),
+        bound_by=k[name].get("bound_by"), library_ms=None)
+        for name, replaces in (
+            ("megastep", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
+            ("species", "bio_ik_tpu/kernels/bio2_step.py:461"))]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
