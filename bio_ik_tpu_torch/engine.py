@@ -18,8 +18,11 @@ chunks.  Two kernel tiers, chosen from the chain:
     exact FK, fitness, incumbents, species sort and wipeout in plain torch
     (reference: ik_evolution_2.cpp:604-645).
 
-Only pose-family goals are ported (ROADMAP.md, port queue item 1), and
-``solve_until`` waits for item 2.  On a card, a problem whose kernel shape
+Primary goals are of the pose family (the other in-kernel kinds are
+ROADMAP.md port queue item 1); joint-space secondary goals run in-kernel on
+both tiers (the packed rows of :meth:`_secondary_rows`: per-generation
+pre-selection and the combined memetic line search).  ``solve_until``
+waits for item 2.  On a card, a problem whose kernel shape
 neither CUDA source instantiates is rejected by :meth:`supports` (item 9).
 
 Randomness.  Per-scenario keys are ``(B, 2)`` integer tensors of 32-bit
@@ -36,7 +39,8 @@ changes scenario i only.  The streams themselves differ from JAX's:
     them from a device ``torch.Generator`` seeded per step from
     ``config.seed`` and the step index (:meth:`_step_seed`, ``mix32``), one
     generation at a time, in a fixed order (noise, rates, wipeout coin,
-    wipeout genes), then maps them through the same ``u01``/gauss/rate
+    wipeout genes, then the pre-selection keeps when there are secondary
+    goals), then maps them through the same ``u01``/gauss/rate
     constructions.
 """
 
@@ -65,6 +69,19 @@ _MAX_FUSED_VARS = 40
 _M32 = 0xFFFFFFFF
 
 _MEMETIC_OF_MODE = {"bio2": "", "bio2_memetic": "q", "bio2_memetic_l": "l"}
+
+# secondary goal kind → in-kernel quadratic term (bio2_step.SEC_ROWS)
+_SEC_TERM_OF = {
+    "center_joints": "alpha",
+    "regularization": "beta",
+    "minimal_displacement": "beta",
+    "avoid_joint_limits": "gamma",
+    "joint_variable": "delta",
+}
+# primary kinds of the JAX package's fused fitness (JAX engine.py:276-277);
+# the port's kernels run the pose family of them
+_FUSED_KINDS = POSE_KINDS + ("max_distance", "min_distance", "lookat", "line",
+                             "plane", "direction", "side", "cone")
 
 
 def _mul32(x, c: int):
@@ -148,16 +165,20 @@ class FusedBio2Engine:
             V=self.ctx.nvars, K=K, C=_C, gens=gens, mem_iters=8,
             memetic=memetic,
             quat_slices=tuple(quat_gene_slices(model, p.active_vars)))
+        # joint-space secondary goals run in the kernels (pre-selection and
+        # combined memetic, reference: ik_evolution_2.cpp:366-378, :459-537)
+        self.sec_terms = tuple(sorted({_SEC_TERM_OF[grp.kind]
+                                       for grp in p.secondary}))
         self.spc = max(1, min(cfg.steps_per_check, cfg.max_steps))
         self.nchecks = max(1, cfg.max_steps // self.spc)
         if self.fullstep:
             self.mega = Megastep(
                 model, p.tip_links, p.active_vars, [g[2] for g in self.ginst],
                 self.sp, n_steps=self.spc, gauss_mode=cfg.gauss_mode,
-                inst_kind=self.inst_kind)
+                sec_terms=self.sec_terms, inst_kind=self.inst_kind)
             self.fixed_vars = FkRows(model, p.tip_links, p.active_vars).fixed_vars
         else:
-            self.kernel = SpeciesKernel(self.sp)
+            self.kernel = SpeciesKernel(self.sp, self.sec_terms)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -166,15 +187,19 @@ class FusedBio2Engine:
         p = iksolver.problem
         if iksolver.config.mode not in _MEMETIC_OF_MODE:
             return f"mode {iksolver.config.mode!r} is not a fused bio2 family"
-        if p.has_secondary:
-            return ("secondary goals are not ported yet (ROADMAP.md, port "
-                    "queue item 1)")
+        # joint-space secondary goals run on both tiers (JAX engine.py:278-287)
+        for grp in p.secondary:
+            if grp.kind not in _SEC_TERM_OF:
+                return (f"secondary goal kind {grp.kind!r} not in the fused "
+                        "secondary fitness")
         if not p.primary:
             return "no primary goals"
         model = p.model
         fullstep = supports_fullstep_chain(
             model, [model.link_index[t] for t in p.tip_links])
         for grp in p.primary:
+            if grp.kind not in _FUSED_KINDS:
+                return f"goal kind {grp.kind!r} not in the fused fitness"
             if grp.kind not in POSE_KINDS:
                 # the species tier keeps pose-shaped rows (JAX engine.py:295-300)
                 if not fullstep:
@@ -198,6 +223,49 @@ class FusedBio2Engine:
                         f"{(V, K)} (csrc/species.cu has {list(SPECIES_SHAPES)}; "
                         "ROADMAP.md, port queue item 9)")
         return None
+
+    # ------------------------------------------------------------------
+    def _secondary_rows(self, data, B):
+        """Packed per-variable secondary rows ``(B, 8·V)`` in
+        :data:`bio2_step.SEC_ROWS` order, each secondary group's (per-
+        scenario) weight² folded into the quadratic coefficients (JAX
+        engine.py:310-349; the evaluators in problem.py are the source
+        forms).  A joint_variable goal on an inactive variable adds only a
+        constant and is dropped: every kernel use is offset-invariant."""
+        p = self.problem
+        V = self.sp.V
+        dt = torch.float32
+        dev = data["seed_active"].device
+        vw = p.velocity_weights.to(dt)
+        bnd = p.abounded.to(dt)
+        zeros = torch.zeros((B, V), dtype=dt, device=dev)
+        alpha, beta, gamma, delta, tsum = zeros, zeros, zeros, zeros, zeros
+        for grp, gdata in zip(p.secondary, data["secondary"]):
+            w2 = gdata["weight_sq"].to(dt)                         # (B, count)
+            w2s = torch.sum(w2, dim=-1)[:, None]                   # (B, 1)
+            if grp.kind == "center_joints":
+                alpha = alpha + w2s * torch.square(vw * bnd)
+            elif grp.kind == "regularization":
+                beta = beta + w2s
+            elif grp.kind == "minimal_displacement":
+                beta = beta + w2s * torch.square(vw)
+            elif grp.kind == "avoid_joint_limits":
+                gamma = gamma + w2s * torch.square(vw * bnd)
+            elif grp.kind == "joint_variable":
+                slots = np.asarray(grp.static["slots"])
+                act = slots >= 0
+                if act.any():
+                    asl = torch.as_tensor(slots[act], device=dev)
+                    actt = torch.as_tensor(act, device=dev)
+                    w2a = w2[:, actt]
+                    tgt = gdata["target"].to(dt)[:, actt]
+                    delta = delta.index_add(1, asl, w2a)
+                    tsum = tsum.index_add(1, asl, w2a * tgt)
+        tbar = torch.where(delta > 0, tsum / torch.clamp(delta, min=1e-30), 0.0)
+        mid = p.amid.to(dt).expand(B, V)
+        hspan = (p.aspan.to(dt) * 0.5).expand(B, V)
+        seed = data["seed_active"].to(dt)
+        return torch.cat([alpha, beta, gamma, delta, tbar, mid, hspan, seed], -1)
 
     # ------------------------------------------------------------------
     def _goal_rows(self, data, B):
@@ -305,6 +373,8 @@ class FusedBio2Engine:
         state = (ls["genes"], ls["grads"], sfit_r, sol_r, sol_fit_r, sol_tips_r)
         consts = (qfix, ls["gpos"], ls["gquat"], ls["wpos"], ls["wrot"],
                   ls["span"], ls["cmin"], ls["cmax"], amin, amax)
+        if self.sec_terms:
+            consts += (ls["lane_goal"](self._secondary_rows(data, B)),)
         return state, consts, ls["salt_row"], best
 
     def _chunk_seed(self, c: int) -> int:
@@ -343,7 +413,8 @@ class FusedBio2Engine:
         """Winner per scenario among ``L`` candidates — ``qa (B, L, V)``,
         ``fit (B, L)``, exact-FK ``tips (B, L, T, 7)`` — (reference:
         ik_parallel.h:220-261): successes before failures, each ranked by
-        fitness.  Returns ``(qa, fit, ok, rank)`` of the winners."""
+        fitness (successes by primary + secondary when the problem has
+        secondary goals).  Returns ``(qa, fit, ok, rank)`` of the winners."""
         p = self.problem
         B, L, V = qa.shape
         T = tips.shape[2]
@@ -353,10 +424,16 @@ class FusedBio2Engine:
                 (B * L,) + x.shape[1:])
 
         t = tips.reshape(B * L, T, 7)
-        ok = p.check_solution(Frame(pos=t[..., 0:3], quat=t[..., 3:7]),
-                              qa.reshape(B * L, V),
-                              tree_map(per_cand, data)).reshape(B, L)
-        rank = fit
+        qa_c, data_c = qa.reshape(B * L, V), tree_map(per_cand, data)
+        ok = p.check_solution(Frame(pos=t[..., 0:3], quat=t[..., 3:7]), qa_c,
+                              data_c).reshape(B, L)
+        if p.has_secondary:
+            # successes ranked by primary + secondary, failures by primary
+            # (JAX engine.py:615-619)
+            fsec = p.fitness_secondary(qa_c, data_c).reshape(B, L)
+            rank = torch.where(ok, fit + fsec, fit)
+        else:
+            rank = fit
         any_ok = torch.any(ok, dim=1, keepdim=True)
         sel = torch.where(ok == any_ok, rank, float("inf"))
         i = torch.argmin(sel, dim=1)
@@ -380,7 +457,8 @@ class FusedBio2Engine:
 
     def _species_draws(self, step: int, salt_row, salt_bi):
         """Step ``step``'s randomness: ``noise (gens, V, C, M)``, ``rates
-        (gens, C, M)``, ``wipe_u (B, I)``, ``wipe_g (B, I, V)``.  Raw 32-bit
+        (gens, C, M)``, ``wipe_u (B, I)``, ``wipe_g (B, I, V)`` and, with
+        secondary goals, ``keeps (gens, 1, M)``.  Raw 32-bit
         words from a device generator, each XORed with the salt of its
         scenario (``salt_row (1, M)``, ``salt_bi (B, I)``, int32), mapped as
         the JAX engine's ``_gauss_bits``/``_rate_bits``/``_u01_bits``.  The
@@ -407,6 +485,9 @@ class FusedBio2Engine:
         rates = rate_from_bits(words(sp.gens, C, M) ^ salt_row)
         wipe_u = u01_from_bits(words(*salt_bi.shape) ^ salt_bi)
         wipe_g = u01_from_bits(words(*salt_bi.shape, V) ^ salt_bi[..., None])
+        if self.sec_terms:
+            keeps = u01_from_bits(words(sp.gens, 1, M) ^ salt_row)
+            return noise, rates, wipe_u, wipe_g, keeps
         return noise, rates, wipe_u, wipe_g
 
     @staticmethod
@@ -461,8 +542,8 @@ class FusedBio2Engine:
 
     def _species_solve(self, keys, data, draws=None):
         """Species-tier solve.  ``draws(step) → (noise, rates, wipe_u,
-        wipe_g)`` replaces the engine's own draws (:meth:`_species_draws`),
-        for tests."""
+        wipe_g[, keeps])`` replaces the engine's own draws
+        (:meth:`_species_draws`), for tests."""
         p, ctx = self.problem, self.ctx
         V, K, I, S = self.sp.V, self.sp.K, self.islands, _S
         ls = self._lane_setup(keys, data)
@@ -486,6 +567,8 @@ class FusedBio2Engine:
             def draws(step):
                 return self._species_draws(step, salt_row, salt_bi)
 
+        sec_rows = (ls["lane_goal"](self._secondary_rows(data, B))
+                    if self.sec_terms else None)
         amin, amax = p.amin.to(torch.float32), p.amax.to(torch.float32)
         genes, grads = ls["genes"], ls["grads"]
         sfit = torch.full((B, I, S), float("inf"), dtype=torch.float32,
@@ -500,7 +583,8 @@ class FusedBio2Engine:
         best = eval_islands()
         for c in range(self.nchecks):
             for i in range(self.spc):
-                noise, rates, wipe_u, wipe_g = draws(c * self.spc + i)
+                noise, rates, wipe_u, wipe_g, *keeps = draws(c * self.spc + i)
+                sec_args = (keeps[0], sec_rows) if self.sec_terms else ()
                 # linearize at parent 0 (reference :341-346)
                 tips0_f, deltas_f = ctx.linearize(ctx.qfull(seed_full_m, genes[:V].T))
                 tips0 = tips0_f[:, tip_slots].reshape(M, K * 7).T.contiguous()
@@ -509,8 +593,8 @@ class FusedBio2Engine:
                 genes, grads = self.kernel(
                     genes, grads, tips0, deltas, ls["gpos"], ls["gquat"],
                     ls["wpos"], ls["wrot"], ls["span"], ls["cmin"], ls["cmax"],
-                    noise, rates)
-                del noise, rates, tips0, deltas, tips0_f, deltas_f
+                    noise, rates, *sec_args)
+                del noise, rates, keeps, sec_args, tips0, deltas, tips0_f, deltas_f
                 # exact FK and fitness of the new parent 0
                 qa_new = genes[:V].T
                 tips_m = ctx.tips_packed(seed_full_m, qa_new)       # (M, T, 7)

@@ -15,8 +15,11 @@ arithmetic and once in the CUDA kernel, so both produce the same bits for
 the same (seed, lane, step, generation, draw) counter.  As in the
 reference, each lane's salt is XORed into every raw 32-bit word.
 
-The non-pose goal kinds and the secondary pre-selection of the JAX body
-are not ported yet (ROADMAP.md, port queue item 1).
+With joint-space secondary goals (``sec_terms``) the step ranks each
+generation's children by secondary fitness and keeps a random-count best
+prefix, and the memetic line search runs on the combined fitness while
+accepting on the primary (reference :366-378, :459-537).  The non-pose goal
+kinds of the JAX body are not ported yet (ROADMAP.md, port queue item 1).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .bio2_step import SpeciesParams, _P
+from .bio2_step import SpeciesParams, _P, make_sec_eval, preselect
 from .fk_rows import FkRows
 
 __all__ = ["make_fullstep_inner", "array_draw_gen", "gauss_from_u01",
@@ -103,11 +106,14 @@ def gauss_from_u01(u, gauss_mode="clt4"):
     return rad * torch.cos(float(np.float32(2.0 * np.pi)) * u[1])
 
 
-def array_draw_gen(noise, rates):
-    """Adapt host ``noise (gens,V,C,N)`` / ``rates (gens,C,N)`` to the
+def array_draw_gen(noise, rates, keep=None):
+    """Adapt host ``noise (gens,V,C,N)`` / ``rates (gens,C,N)`` (and, with
+    secondary goals, the pre-selection uniforms ``keep (gens,1,N)``) to the
     per-generation ``draw_gen`` interface of :func:`make_fullstep_inner`."""
     def draw_gen(g):
-        return noise[g], rates[g]
+        if keep is None:
+            return noise[g], rates[g]
+        return noise[g], rates[g], keep[g]
 
     return draw_gen
 
@@ -124,6 +130,7 @@ def _is_zero(c):
 def make_fullstep_inner(model, tip_links: Sequence[str],
                         active_vars: Sequence[int],
                         inst_tip: Sequence[int], sp: SpeciesParams,
+                        sec_terms: Sequence[str] = (),
                         inst_kind: Sequence[str] = None):
     """Build the fused step on ``(rows, N)`` tensors.
 
@@ -134,7 +141,9 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
             gquat (4K,N), wpos (K,N), wrot (K,N), span/cmin/cmax (V,N),
             draw_gen) → genes', grads', tips_exact (7T,N), fit (1,N)
 
-    ``draw_gen(g) → (noise (V,C,N), rates (C,N))``.  Returns ``(inner,
+    ``draw_gen(g) → (noise (V,C,N), rates (C,N))``.  With ``sec_terms`` the
+    packed ``sec (8V,N)`` rows come after ``cmax`` and ``draw_gen`` also
+    returns the pre-selection uniform ``keep (1,N)``.  Returns ``(inner,
     F)`` with F the number of fixed-variable rows.
     """
     if inst_kind is not None and any(k not in POSE_KINDS for k in inst_kind):
@@ -149,8 +158,15 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
     def row(a, i):
         return a[i : i + 1, :]
 
+    secondary = bool(sec_terms)
+
     def inner(genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin, cmax,
-              draw_gen):
+              *rest):
+        if secondary:
+            sec, draw_gen = rest
+            sec_of, sec_grad = make_sec_eval(sec, V, tuple(sec_terms))
+        else:
+            (draw_gen,) = rest
         dt = genes.dtype
         dev = genes.device
         N = genes.shape[-1]
@@ -221,7 +237,10 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
 
         # ---- generations (reference :349-431) ---------------------------
         for g in range(sp.gens):
-            noise_g, rate = draw_gen(g)
+            if secondary:
+                noise_g, rate, keep_u = draw_gen(g)
+            else:
+                noise_g, rate = draw_gen(g)
             pgrad = [p0r[v] * (1.0 - fmix) + p1r[v] * fmix for v in range(V)]
             cg, cr = [], []
             for v in range(V):
@@ -232,6 +251,8 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
             pool_g = [torch.cat([p0g[v], p1g[v], cg[v]], 0) for v in range(V)]
             pool_r = [torch.cat([p0r[v], p1r[v], cr[v]], 0) for v in range(V)]
             fit, _ = eval_goals(phen_of([pool_g[v] - x0[v] for v in range(V)]))
+            if secondary:
+                fit = preselect(fit, sec_of(cg), keep_u, C)
             # first-min select of 2 of C+2 (the JAX body's pick); kept
             # candidates are gathered, not one-hot summed, so 0·inf never
             # turns into NaN
@@ -251,7 +272,9 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
             for _ in range(sp.mem_iters):
                 ph = phen_of([x[v] - x0[v] for v in range(V)])
                 f2p, gvec = eval_goals(ph, want_grad=True)
-                f2 = f2p
+                # the line search runs on the combined fitness, acceptance
+                # stays primary against primary (reference :459-537)
+                f2 = f2p + sec_of(x) if secondary else f2p
                 grad = []
                 for v in range(V):
                     gv = 0.0
@@ -268,6 +291,8 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
                             if _is_zero(gk):
                                 continue
                             gv = gv + c * gk
+                    if secondary:
+                        gv = gv + sec_grad(x, v)
                     grad.append(gv)
                 l1 = 0.0
                 for v in range(V):
@@ -281,6 +306,9 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
                 xp = [x[v] + gdir[v] for v in range(V)]
                 f1, _ = eval_goals(phen_of([xm[v] - x0[v] for v in range(V)]))
                 f3, _ = eval_goals(phen_of([xp[v] - x0[v] for v in range(V)]))
+                if secondary:
+                    f1 = f1 + sec_of(xm)
+                    f3 = f3 + sec_of(xp)
                 if sp.memetic == "q":
                     v1, v2 = f2 - f1, f3 - f2
                     vv = (v1 + v2) * 0.5

@@ -20,6 +20,14 @@ Two randomness modes, in both versions:
     and the JAX body;
   * in-kernel Philox (seed + per-lane salt), the mode of the solve.  The
     plain version draws the identical bits (:func:`philox_draw`).
+
+With joint-space secondary goals (``sec_terms``) the consts end with the
+packed ``sec (8V, N)`` rows and each generation draws one more uniform, the
+pre-selection keep (``keep (steps·gens, 1, N)`` in noise-tensor mode).
+
+:class:`Fullstep` wraps the same step without the bookkeeping (the TPU
+kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
+``csrc/megastep.cu``.  No solve path launches it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,11 +46,12 @@ from .bio2_fullstep import (
     rate_from_bits,
     u01_from_bits,
 )
-from .bio2_step import SpeciesParams, _P
+from .bio2_step import SpeciesParams, _P, sec_term_mask
 from .fk_rows import FkRows
 
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "Megastep",
-           "megastep_flops_per_lane", "MEGASTEP_SHAPES"]
+           "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
+           "MEGASTEP_SHAPES"]
 
 # (V, K, T) instances of csrc/megastep.cu (its SHAPES macro)
 MEGASTEP_SHAPES = ((7, 1, 1), (6, 1, 1))
@@ -62,8 +71,18 @@ def megastep_flops_per_lane(sp: SpeciesParams, n_steps: int) -> int:
     return n_steps * (evals * (sp.K * 7 * sp.V * 2 + sp.K * 30) + 900)
 
 
+def fullstep_bytes_per_lane(sp: SpeciesParams, F: int) -> int:
+    """Bytes per lane of one fullstep launch in noise-tensor mode, each input
+    read once and each output written once: the TPU kernel's cost estimate
+    (bio2_fullstep.py:705-706) — noise, rates, genes/grads in and out, the
+    three bound rows, the fixed rows."""
+    return 4 * (sp.gens * sp.V * sp.C + sp.gens * sp.C + 4 * _P * sp.V
+                + 3 * sp.V + max(F, 1))
+
+
 def make_megastep_body(model, tip_links, active_vars, inst_tip,
-                       sp: SpeciesParams, n_steps: int, inst_kind=None):
+                       sp: SpeciesParams, n_steps: int, sec_terms=(),
+                       inst_kind=None):
     """Build the chunk body over ``(rows, N)`` tensors.
 
     Returns ``(body, F)``; ``body(state, consts, draw)`` advances
@@ -71,18 +90,19 @@ def make_megastep_body(model, tip_links, active_vars, inst_tip,
       state  = (genes (2V,N), grads (2V,N), sfit (1,N),
                 sol (V,N), sol_fit (1,N), sol_tips (7T,N))
       consts = (qfix (max(F,1),N), gpos (3K,N), gquat (4K,N), wpos (K,N),
-                wrot (K,N), span/cmin/cmax/amin/amax (V,N))
+                wrot (K,N), span/cmin/cmax/amin/amax (V,N)[, sec (8V,N)])
 
-    by ``n_steps`` fused steps; ``draw(i) → (draw_gen, wipe_u (1,N),
-    wipe_g (V,N))`` supplies step i's randomness.
+    by ``n_steps`` fused steps (``sec`` iff ``sec_terms``); ``draw(i) →
+    (draw_gen, wipe_u (1,N), wipe_g (V,N))`` supplies step i's randomness.
     """
     inner, F = make_fullstep_inner(model, tip_links, active_vars, inst_tip,
-                                   sp, inst_kind=inst_kind)
+                                   sp, sec_terms=sec_terms, inst_kind=inst_kind)
     V = sp.V
 
     def body(state, consts, draw):
         genes, grads, sfit, sol, sol_fit, sol_tips = state
-        qfix, gpos, gquat, wpos, wrot, span, cmin, cmax, amin, amax = consts
+        qfix, gpos, gquat, wpos, wrot, span, cmin, cmax, amin, amax = consts[:10]
+        sec_args = tuple(consts[10:])
         N = genes.shape[-1]
         even = (torch.arange(N, device=genes.device) % 2 == 0)[None, :]
 
@@ -94,7 +114,7 @@ def make_megastep_body(model, tip_links, active_vars, inst_tip,
             draw_gen, wipe_u, wipe_g = draw(i)
             genes, grads, tips, fit = inner(
                 genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin,
-                cmax, draw_gen)
+                cmax, *sec_args, draw_gen)
 
             # per-lane incumbent update (reference :640-644)
             better = fit < sol_fit
@@ -123,23 +143,27 @@ def make_megastep_body(model, tip_links, active_vars, inst_tip,
     return body, F
 
 
-def array_draw(noise, rates, wipe_u, wipe_g, gens: int):
-    """``draw(i)`` over caller-provided noise tensors (noise-tensor mode)."""
+def array_draw(noise, rates, wipe_u, wipe_g, gens: int, keep=None):
+    """``draw(i)`` over caller-provided noise tensors (noise-tensor mode);
+    ``keep (steps·gens, 1, N)`` with secondary goals."""
     def draw(i):
         g0 = i * gens
-        return (array_draw_gen(noise[g0:g0 + gens], rates[g0:g0 + gens]),
+        k = None if keep is None else keep[g0:g0 + gens]
+        return (array_draw_gen(noise[g0:g0 + gens], rates[g0:g0 + gens], k),
                 wipe_u[i], wipe_g[i])
 
     return draw
 
 
-def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4"):
+def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
+                keep: bool = False):
     """``draw(i)`` from the Philox stream the CUDA kernel draws in-kernel:
     counter ``(lane, step i, generation g, draw)`` under key ``(seed, 0)``;
     gaussian (v, c) is draw ``v·C + c`` (its four words feed clt4, the
-    first two Box–Muller), rate c is draw ``V·C + c``; the wipe coin and
-    restart genes are draws ``0`` and ``1 + v`` of generation word
-    ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt."""
+    first two Box–Muller), rate c is draw ``V·C + c``, and with ``keep``
+    (secondary goals) the pre-selection uniform is draw ``V·C + C``; the
+    wipe coin and restart genes are draws ``0`` and ``1 + v`` of generation
+    word ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt."""
     if gauss_mode not in GAUSS_MODES:
         raise ValueError(f"gauss_mode must be one of {GAUSS_MODES}")
     dev = salt.device
@@ -149,6 +173,7 @@ def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4"):
     gidx = torch.arange(V * C, device=dev, dtype=torch.int64)[:, None]
     ridx = torch.arange(C, device=dev, dtype=torch.int64)[:, None] + V * C
     widx = torch.arange(1 + V, device=dev, dtype=torch.int64)[:, None]
+    kidx = torch.full((1, 1), V * C + C, device=dev, dtype=torch.int64)
 
     def draw(i):
         def draw_gen(g):
@@ -160,6 +185,10 @@ def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4"):
             noise = gauss_from_u01(u, gauss_mode).view(V, C, N)
             rates = rate_from_bits(
                 philox_words(seed, lane, i, g, ridx, salt64)[0])
+            if keep:
+                k = u01_from_bits(philox_words(seed, lane, i, g, kidx,
+                                               salt64)[0])
+                return noise, rates, k
             return noise, rates
 
         w = u01_from_bits(philox_words(seed, lane, i, _WIPE_GEN, widx, salt64)[0])
@@ -172,65 +201,37 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-class Megastep:
-    """The megastep for one (model, tips, active set, goal instances,
-    species params, n_steps); call it on the solver state.
+def _check(t, shape, name, dev, dtype=torch.float32):
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: want a contiguous {dtype} {tuple(shape)} tensor on {dev}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
-    ``Megastep.launches`` counts kernel launches over all instances; it is
-    incremented only where the CUDA kernel is launched.
-    """
 
-    launches = 0
+class _StepKernel:
+    """What :class:`Megastep` and :class:`Fullstep` share: the chain tables
+    of ``csrc/megastep.cu`` on each device and the shape check."""
 
     def __init__(self, model, tip_links, active_vars, inst_tip,
-                 sp: SpeciesParams, n_steps: int, gauss_mode: str = "clt4",
-                 inst_kind=None):
+                 sp: SpeciesParams, gauss_mode: str, sec_terms=()):
         if gauss_mode not in GAUSS_MODES:
             raise ValueError(f"gauss_mode must be one of {GAUSS_MODES}")
-        self.sp, self.n_steps, self.gauss_mode = sp, n_steps, gauss_mode
-        self.body, self.F = make_megastep_body(
-            model, tip_links, active_vars, inst_tip, sp, n_steps,
-            inst_kind=inst_kind)
+        self.sp, self.gauss_mode = sp, gauss_mode
+        self.sec_terms = tuple(sec_terms)
+        self.sec_mask = sec_term_mask(self.sec_terms)
         self.T = len(tip_links)
         link_i, link_f, tip_slot = FkRows(
             model, tip_links, active_vars).chain_arrays()
         self._chain = (link_i, link_f, tip_slot,
                        np.asarray(inst_tip, np.int32))
         self._chain_dev = {}
-        self.state_rows = [_P * sp.V, _P * sp.V, 1, sp.V, 1, 7 * self.T]
-        self.const_rows = [max(self.F, 1), 3 * sp.K, 4 * sp.K, sp.K, sp.K,
-                           sp.V, sp.V, sp.V, sp.V, sp.V]
 
-    def __call__(self, state, consts, *, seed=None, salt=None, noise=None,
-                 rates=None, wipe_u=None, wipe_g=None):
-        """Advance ``state`` by ``n_steps`` steps.  Either ``seed`` (int) and
-        ``salt`` ((1, N) int32) for in-kernel Philox, or the four noise
-        tensors.  Returns the new state tuple."""
-        tensors = noise is not None
-        if not tensors and (seed is None or salt is None):
-            raise ValueError("pass seed and salt, or the noise tensors")
-        dev = state[0].device
-        if dev.type == "cpu":
-            sp = self.sp
-            if tensors:
-                draw = array_draw(noise, rates, wipe_u, wipe_g, sp.gens)
-            else:
-                draw = philox_draw(int(seed), salt, sp.V, sp.C, self.gauss_mode)
-            return self.body(tuple(state), tuple(consts), draw)
-        if dev.type == "cuda":
-            return self._launch(state, consts, seed, salt,
-                                (noise, rates, wipe_u, wipe_g) if tensors else None)
-        raise ValueError(f"megastep runs on cuda or cpu tensors, not {dev}")
-
-    # ------------------------------------------------------------------
-    def _launch(self, state, consts, seed, salt, rng):
+    def _lib(self, N):
         from .build import load
 
         lib = load("megastep")
         sp = self.sp
-        genes = state[0]
-        dev = genes.device
-        N = genes.shape[-1]
         if N % 2:
             raise ValueError(f"lane count {N} must be even (species pairs)")
         lib.megastep_has_shape.argtypes = [ctypes.c_int] * 3
@@ -240,59 +241,202 @@ class Megastep:
                 f"the megastep kernel is not instantiated for V={sp.V}, "
                 f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu; "
                 "ROADMAP.md, port queue item 9)")
+        return lib
 
-        def check(t, rows, name, dtype=torch.float32):
-            if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
-                    or tuple(t.shape) != (rows, N):
-                raise ValueError(
-                    f"{name}: want a contiguous {dtype} ({rows}, {N}) tensor "
-                    f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-        for t, r, nm in zip(state, self.state_rows,
-                            ("genes", "grads", "sfit", "sol", "sol_fit",
-                             "sol_tips")):
-            check(t, r, nm)
-        for t, r, nm in zip(consts, self.const_rows,
-                            ("qfix", "gpos", "gquat", "wpos", "wrot", "span",
-                             "cmin", "cmax", "amin", "amax")):
-            check(t, r, nm)
-        steps_gens = self.n_steps * sp.gens
-        if rng is None:
-            check(salt, 1, "salt", torch.int32)
-            rng_mode = _RNG_CODE[self.gauss_mode]
-            noise = rates = wipe_u = wipe_g = genes   # unread
-        else:
-            noise, rates, wipe_u, wipe_g = rng
-            for t, shape, nm in ((noise, (steps_gens, sp.V, sp.C, N), "noise"),
-                                 (rates, (steps_gens, sp.C, N), "rates"),
-                                 (wipe_u, (self.n_steps, 1, N), "wipe_u"),
-                                 (wipe_g, (self.n_steps, sp.V, N), "wipe_g")):
-                if t.device != dev or t.dtype != torch.float32 or \
-                        not t.is_contiguous() or tuple(t.shape) != shape:
-                    raise ValueError(f"{nm}: want a contiguous float32 "
-                                     f"{shape} tensor on {dev}")
-            salt = torch.zeros((1, N), dtype=torch.int32, device=dev)
-            seed = 0
-            rng_mode = 0
+    def _chain_on(self, dev):
         if dev not in self._chain_dev:
             self._chain_dev[dev] = tuple(torch.as_tensor(a, device=dev)
                                          for a in self._chain)
-        chain_i, chain_f, tip_slot, inst_tip = self._chain_dev[dev]
+        return self._chain_dev[dev]
+
+
+class Megastep(_StepKernel):
+    """The megastep for one (model, tips, active set, goal instances,
+    species params, n_steps, secondary terms); call it on the solver state.
+
+    ``Megastep.launches`` counts kernel launches over all instances; it is
+    incremented only where the CUDA kernel is launched.
+    """
+
+    launches = 0
+
+    def __init__(self, model, tip_links, active_vars, inst_tip,
+                 sp: SpeciesParams, n_steps: int, gauss_mode: str = "clt4",
+                 sec_terms=(), inst_kind=None):
+        super().__init__(model, tip_links, active_vars, inst_tip, sp,
+                         gauss_mode, sec_terms)
+        self.n_steps = n_steps
+        self.body, self.F = make_megastep_body(
+            model, tip_links, active_vars, inst_tip, sp, n_steps,
+            sec_terms=self.sec_terms, inst_kind=inst_kind)
+        self.state_rows = [_P * sp.V, _P * sp.V, 1, sp.V, 1, 7 * self.T]
+        self.const_rows = [max(self.F, 1), 3 * sp.K, 4 * sp.K, sp.K, sp.K,
+                           sp.V, sp.V, sp.V, sp.V, sp.V]
+        if self.sec_terms:
+            self.const_rows.append(8 * sp.V)
+
+    def __call__(self, state, consts, *, seed=None, salt=None, noise=None,
+                 rates=None, wipe_u=None, wipe_g=None, keep=None):
+        """Advance ``state`` by ``n_steps`` steps.  Either ``seed`` (int) and
+        ``salt`` ((1, N) int32) for in-kernel Philox, or the noise tensors
+        (``keep`` too with secondary terms).  Returns the new state tuple."""
+        tensors = noise is not None
+        if not tensors and (seed is None or salt is None):
+            raise ValueError("pass seed and salt, or the noise tensors")
+        if tensors and bool(self.sec_terms) != (keep is not None):
+            raise ValueError("pass keep exactly when the step has secondary terms")
+        dev = state[0].device
+        if dev.type == "cpu":
+            sp = self.sp
+            if tensors:
+                draw = array_draw(noise, rates, wipe_u, wipe_g, sp.gens, keep)
+            else:
+                draw = philox_draw(int(seed), salt, sp.V, sp.C, self.gauss_mode,
+                                   keep=bool(self.sec_terms))
+            return self.body(tuple(state), tuple(consts), draw)
+        if dev.type == "cuda":
+            return self._launch(state, consts, seed, salt,
+                                (noise, rates, wipe_u, wipe_g, keep)
+                                if tensors else None)
+        raise ValueError(f"megastep runs on cuda or cpu tensors, not {dev}")
+
+    # ------------------------------------------------------------------
+    def _launch(self, state, consts, seed, salt, rng):
+        sp = self.sp
+        genes = state[0]
+        dev = genes.device
+        N = genes.shape[-1]
+        lib = self._lib(N)
+        for t, r, nm in zip(state, self.state_rows,
+                            ("genes", "grads", "sfit", "sol", "sol_fit",
+                             "sol_tips")):
+            _check(t, (r, N), nm, dev)
+        if len(consts) != len(self.const_rows):
+            raise ValueError(f"want {len(self.const_rows)} consts, got {len(consts)}")
+        for t, r, nm in zip(consts, self.const_rows,
+                            ("qfix", "gpos", "gquat", "wpos", "wrot", "span",
+                             "cmin", "cmax", "amin", "amax", "sec")):
+            _check(t, (r, N), nm, dev)
+        sec = consts[10] if self.sec_terms else genes            # unread
+        steps_gens = self.n_steps * sp.gens
+        if rng is None:
+            _check(salt, (1, N), "salt", dev, torch.int32)
+            rng_mode = _RNG_CODE[self.gauss_mode]
+            noise = rates = wipe_u = wipe_g = keep = genes        # unread
+        else:
+            noise, rates, wipe_u, wipe_g, keep = rng
+            _check(noise, (steps_gens, sp.V, sp.C, N), "noise", dev)
+            _check(rates, (steps_gens, sp.C, N), "rates", dev)
+            _check(wipe_u, (self.n_steps, 1, N), "wipe_u", dev)
+            _check(wipe_g, (self.n_steps, sp.V, N), "wipe_g", dev)
+            if self.sec_terms:
+                _check(keep, (steps_gens, 1, N), "keep", dev)
+            else:
+                keep = genes                                      # unread
+            salt = torch.zeros((1, N), dtype=torch.int32, device=dev)
+            seed = 0
+            rng_mode = 0
+        chain_i, chain_f, tip_slot, inst_tip = self._chain_on(dev)
         out = tuple(torch.empty_like(t) for t in state)
         fn = lib.megastep_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_uint]
-                       + [ctypes.c_void_p] * 32)
+                                             ctypes.c_uint, ctypes.c_uint]
+                       + [ctypes.c_void_p] * 34)
         rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], self.n_steps,
                 sp.gens, sp.C, sp.mem_iters, _MEMETIC_CODE[sp.memetic],
-                sp.h, rng_mode, int(seed) & 0xFFFFFFFF, _ptr(salt),
-                *(_ptr(t) for t in state), *(_ptr(t) for t in out),
-                *(_ptr(t) for t in consts),
-                _ptr(noise), _ptr(rates), _ptr(wipe_u), _ptr(wipe_g),
+                sp.h, rng_mode, int(seed) & 0xFFFFFFFF, self.sec_mask,
+                _ptr(salt), *(_ptr(t) for t in state), *(_ptr(t) for t in out),
+                *(_ptr(t) for t in consts[:10]), _ptr(sec),
+                _ptr(noise), _ptr(rates), _ptr(wipe_u), _ptr(wipe_g), _ptr(keep),
                 _ptr(chain_i), _ptr(chain_f), _ptr(tip_slot), _ptr(inst_tip),
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
             raise RuntimeError(f"megastep launch failed: CUDA error {rc}")
         Megastep.launches += 1
         return out
+
+
+class Fullstep(_StepKernel):
+    """One bio2 step with no species bookkeeping — the port of the TPU
+    kernel ``make_fullstep_kernel`` (pose family, no secondary goals, as
+    there).  Call it on ``genes, grads (2V,N), qfix (max(F,1),N), gpos
+    (3K,N), gquat (4K,N), wpos, wrot (K,N), span, cmin, cmax (V,N)`` with
+    either ``noise (gens,V,C,N)`` and ``rates (gens,C,N)`` or ``seed`` and
+    ``salt`` (Philox, step word 0, clt4 gaussians); returns ``genes', grads', tips (7T,N),
+    fit (1,N)``.  On CPU tensors it runs the plain
+    :func:`make_fullstep_inner`, on CUDA tensors the ``fullstep_launch``
+    entry of ``csrc/megastep.cu``.
+
+    ``Fullstep.launches`` counts kernel launches; it is incremented only
+    where the CUDA kernel is launched.
+    """
+
+    launches = 0
+
+    def __init__(self, model, tip_links, active_vars, inst_tip,
+                 sp: SpeciesParams):
+        super().__init__(model, tip_links, active_vars, inst_tip, sp, "clt4")
+        self.inner, self.F = make_fullstep_inner(
+            model, tip_links, active_vars, inst_tip, sp)
+        self.rows = (("genes", _P * sp.V), ("grads", _P * sp.V),
+                     ("qfix", max(self.F, 1)), ("gpos", 3 * sp.K),
+                     ("gquat", 4 * sp.K), ("wpos", sp.K), ("wrot", sp.K),
+                     ("span", sp.V), ("cmin", sp.V), ("cmax", sp.V))
+
+    def __call__(self, genes, grads, qfix, gpos, gquat, wpos, wrot, span,
+                 cmin, cmax, *, noise=None, rates=None, seed=None, salt=None):
+        args = (genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin, cmax)
+        tensors = noise is not None
+        if not tensors and (seed is None or salt is None):
+            raise ValueError("pass seed and salt, or noise and rates")
+        dev = genes.device
+        if dev.type == "cpu":
+            if tensors:
+                draw_gen = array_draw_gen(noise, rates)
+            else:
+                draw_gen = philox_draw(int(seed), salt, self.sp.V, self.sp.C,
+                                       self.gauss_mode)(0)[0]
+            return self.inner(*args, draw_gen)
+        if dev.type == "cuda":
+            return self._launch(args, noise, rates, seed, salt)
+        raise ValueError(f"fullstep runs on cuda or cpu tensors, not {dev}")
+
+    def _launch(self, args, noise, rates, seed, salt):
+        sp = self.sp
+        genes = args[0]
+        dev = genes.device
+        N = genes.shape[-1]
+        lib = self._lib(N)
+        for t, (nm, r) in zip(args, self.rows):
+            _check(t, (r, N), nm, dev)
+        if noise is None:
+            _check(salt, (1, N), "salt", dev, torch.int32)
+            rng_mode = _RNG_CODE[self.gauss_mode]
+            noise = rates = genes                                 # unread
+        else:
+            _check(noise, (sp.gens, sp.V, sp.C, N), "noise", dev)
+            _check(rates, (sp.gens, sp.C, N), "rates", dev)
+            salt = torch.zeros((1, N), dtype=torch.int32, device=dev)
+            seed = 0
+            rng_mode = 0
+        chain_i, chain_f, tip_slot, inst_tip = self._chain_on(dev)
+        genes_o, grads_o = torch.empty_like(genes), torch.empty_like(genes)
+        tips_o = torch.empty((7 * self.T, N), dtype=torch.float32, device=dev)
+        fit_o = torch.empty((1, N), dtype=torch.float32, device=dev)
+        fn = lib.fullstep_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_uint]
+                       + [ctypes.c_void_p] * 22)
+        rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], sp.gens, sp.C,
+                sp.mem_iters, _MEMETIC_CODE[sp.memetic], sp.h, rng_mode,
+                int(seed) & 0xFFFFFFFF, _ptr(salt),
+                *(_ptr(t) for t in args), _ptr(noise), _ptr(rates),
+                _ptr(genes_o), _ptr(grads_o), _ptr(tips_o), _ptr(fit_o),
+                _ptr(chain_i), _ptr(chain_f), _ptr(tip_slot), _ptr(inst_tip),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"fullstep launch failed: CUDA error {rc}")
+        Fullstep.launches += 1
+        return genes_o, grads_o, tips_o, fit_o

@@ -13,8 +13,11 @@ tensors; :class:`SpeciesKernel` is the wrapper a caller uses: on CUDA
 tensors it launches the hand-written kernel of ``csrc/species.cu``, on CPU
 tensors it runs the plain version.  There is no fallback between the two.
 
-The secondary-goal pre-selection of the JAX body (``sec_terms``) is not
-ported yet (ROADMAP.md, port queue item 1).
+With joint-space secondary goals (``sec_terms``, the packed :data:`SEC_ROWS`
+const from ``engine._secondary_rows``) each generation ranks the children by
+secondary fitness and keeps a random-count best prefix for the primary
+selection, and the memetic line search runs on the combined fitness while
+accepting on the primary (reference: ik_evolution_2.cpp:366-378, :459-537).
 """
 
 from __future__ import annotations
@@ -24,21 +27,104 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["SpeciesParams", "SEC_ROWS", "_P", "make_species_inner",
-           "SpeciesKernel", "SPECIES_SHAPES", "species_flops_per_lane",
-           "species_bytes_per_lane"]
+__all__ = ["SpeciesParams", "SEC_ROWS", "SEC_TERMS", "_P", "make_sec_eval",
+           "preselect", "sec_term_mask", "make_species_inner", "SpeciesKernel",
+           "SPECIES_SHAPES", "species_flops_per_lane", "species_bytes_per_lane"]
 
 _P = 2  # parents kept per species (reference: population_size=2, ik_evolution_2.cpp:137)
 
-# packed per-variable secondary-fitness rows, in the reference's order
-# (engine._secondary_rows); used once secondary goals are ported
+# packed per-variable secondary-fitness rows inside the ``sec (8·V, N)``
+# const (engine._secondary_rows builds them in this order) — the
+# coefficient/center rows of the joint-space quadratic
+#   sec(x) = Σ_v α(x−mid)² + β(x−seed)² + γ·relu(2|x−mid|−hspan)² + δ(x−tbar)²
+# covering center_joints (α), regularization/minimal_displacement (β),
+# avoid_joint_limits (γ) and joint_variable (δ) (reference:
+# computeSecondaryFitnessActiveVariables, ik_base.h:163-185).  Constant
+# offsets are dropped: every kernel use (pre-selection ranks, line-search
+# differences, gradients) is invariant to them.
 SEC_ROWS = ("alpha", "beta", "gamma", "delta", "tbar", "mid", "hspan",
             "seed")
+SEC_TERMS = ("alpha", "beta", "gamma", "delta")
 
 # (V, K) instances of csrc/species.cu (its SHAPES macro)
 SPECIES_SHAPES = ((10, 1), (5, 1))
 
 _MEMETIC_CODE = {"": 0, "q": 1, "l": 2}
+
+
+def sec_term_mask(sec_terms) -> int:
+    """Bit ``i`` set for ``SEC_TERMS[i]`` in ``sec_terms`` (the CUDA
+    kernels' term mask, csrc/sec_eval.cuh)."""
+    bad = set(sec_terms) - set(SEC_TERMS)
+    if bad:
+        raise ValueError(f"unknown secondary terms {sorted(bad)}")
+    return sum(1 << i for i, t in enumerate(SEC_TERMS) if t in sec_terms)
+
+
+def make_sec_eval(sec, V: int, sec_terms):
+    """Secondary fitness and gradient over the packed ``sec (8·V, N)`` rows
+    (JAX bio2_step.py:56-103, the same operations in the same order).
+    ``sec_terms`` ⊆ :data:`SEC_TERMS` gates the terms the problem has.
+    Returns ``(sec_of(xs), sec_grad(xs, v))`` for ``xs`` indexable by
+    variable (a list of rows or a ``(V, ...)`` tensor); each row broadcasts
+    against ``sec``'s ``(1, N)`` rows."""
+    ridx = {name: i for i, name in enumerate(SEC_ROWS)}
+
+    def row(name, v):
+        i = ridx[name] * V + v
+        return sec[i:i + 1]
+
+    def terms_v(xs, v):
+        out = []
+        xm = xs[v] - row("mid", v)
+        if "alpha" in sec_terms:
+            out.append(("alpha", xm))
+        if "beta" in sec_terms:
+            out.append(("beta", xs[v] - row("seed", v)))
+        if "delta" in sec_terms:
+            out.append(("delta", xs[v] - row("tbar", v)))
+        return out, xm
+
+    def sec_of(xs):
+        acc = 0.0
+        for v in range(V):
+            quads, xm = terms_v(xs, v)
+            for name, e in quads:
+                acc = acc + row(name, v) * (e * e)
+            if "gamma" in sec_terms:
+                r = torch.clamp(2.0 * torch.abs(xm) - row("hspan", v), min=0.0)
+                acc = acc + row("gamma", v) * (r * r)
+        return acc
+
+    def sec_grad(xs, v):
+        quads, xm = terms_v(xs, v)
+        g = 0.0
+        for name, e in quads:
+            g = g + 2.0 * row(name, v) * e
+        if "gamma" in sec_terms:
+            r = torch.clamp(2.0 * torch.abs(xm) - row("hspan", v), min=0.0)
+            sgn = torch.where(xm >= 0, 1.0, -1.0).to(xm.dtype)
+            g = g + 4.0 * row("gamma", v) * r * sgn
+        return g
+
+    return sec_of, sec_grad
+
+
+def preselect(fit, ssec, keep_u, C: int):
+    """The secondary pre-selection of one generation (reference
+    :366-378): rank the C children by secondary fitness ``ssec (C, N)``
+    (ties to the lower index), keep the best ``int(keep_u·(C−1)) + 1``
+    and set the primary fitness of the rest to +inf.  ``fit (2+C, N)`` has
+    the two parents first; they always survive."""
+    s_i, s_j = ssec[:, None], ssec[None, :]
+    idx = torch.arange(C, device=ssec.device)
+    ii, jj = idx[:, None, None], idx[None, :, None]
+    beats = (s_j < s_i) | ((s_j == s_i) & (jj < ii))
+    rank = beats.sum(dim=1)                                  # (C, N)
+    kcount = (keep_u * (C - 1)).to(torch.int32) + 1           # ∈ [1, C−1]
+    child_keep = rank < kcount
+    return torch.cat([fit[:_P], torch.where(child_keep, fit[_P:],
+                                            float("inf"))], 0)
 
 
 class SpeciesParams(NamedTuple):
@@ -64,16 +150,18 @@ def species_flops_per_lane(sp: SpeciesParams) -> int:
     return evals * (sp.K * 7 * sp.V * 2 + sp.K * 30)
 
 
-def species_bytes_per_lane(sp: SpeciesParams) -> int:
+def species_bytes_per_lane(sp: SpeciesParams, sec_terms=()) -> int:
     """Bytes per lane per launch, each input read once and each output
     written once: the TPU cost estimate's rows (bio2_step.py:472-473) plus
-    the goal rows it leaves out (tips0, gpos, gquat, wpos, wrot: 16·K)."""
+    the goal rows it leaves out (tips0, gpos, gquat, wpos, wrot: 16·K) and,
+    with ``sec_terms``, the keeps and the packed secondary rows."""
     V, K = sp.V, sp.K
+    sec = sp.gens + len(SEC_ROWS) * V if sec_terms else 0
     return 4 * (sp.gens * V * sp.C + sp.gens * sp.C + 4 * _P * V
-                + V * K * 7 + 3 * V + 16 * K)
+                + V * K * 7 + 3 * V + 16 * K + sec)
 
 
-def make_species_inner(sp: SpeciesParams):
+def make_species_inner(sp: SpeciesParams, sec_terms=()):
     """Build ``inner(...) -> (genes_out, grads_out)`` on ``(rows, N)``
     tensors.  Row layouts:
 
@@ -85,6 +173,10 @@ def make_species_inner(sp: SpeciesParams):
       span, cmin, cmax (V, N)
       noise         (gens, V, C, N) unit gaussians
       rates         (gens, C, N) mutation rates (2^(k-23), reference :265)
+
+    With ``sec_terms`` two trailing arguments are required: ``keeps (gens,
+    1, N)`` uniforms for the pre-selection prefix and ``sec (8·V, N)``, the
+    packed :data:`SEC_ROWS`.
 
     The linearization point x0 is parent 0 at entry (the caller linearized
     there, reference :341-346).  Work is batched over variables, children
@@ -124,7 +216,9 @@ def make_species_inner(sp: SpeciesParams):
         return fit
 
     def inner(genes, grads, tips0, deltas, gpos, gquat, wpos, wrot,
-              span, cmin, cmax, noise, rates):
+              span, cmin, cmax, noise, rates, keeps=None, sec=None):
+        if sec_terms:
+            sec_of, sec_grad = make_sec_eval(sec, V, sec_terms)
         dt = genes.dtype
         dev = genes.device
         N = genes.shape[-1]
@@ -164,6 +258,8 @@ def make_species_inner(sp: SpeciesParams):
             pool_g = torch.cat([p0g, p1g, cg], 1)                     # (V, C+2, N)
             pool_r = torch.cat([p0r, p1r, cr], 1)
             fit = fitness(phen(tips0, D, pool_g - x0), gpos, gquat, wpos, wrot)
+            if sec_terms:
+                fit = preselect(fit, sec_of(cg), keeps[g], C)
             # first-min select of 2 (the JAX body's one-hot pick); kept rows
             # are gathered, so 0·inf never turns into NaN
             i1 = torch.argmin(fit, dim=0, keepdim=True)
@@ -182,7 +278,9 @@ def make_species_inner(sp: SpeciesParams):
             done = torch.zeros((1, N), dtype=torch.bool, device=dev)
             for _ in range(sp.mem_iters):
                 f2p, ph = f_of(x)
-                f2 = f2p
+                # the line search runs on the combined fitness, acceptance
+                # stays primary against primary (reference :459-537)
+                f2 = f2p + sec_of(x) if sec_terms else f2p
                 # analytic gradient of the linearized pose fitness, all v
                 # at once
                 grad = 0.0
@@ -204,6 +302,8 @@ def make_species_inner(sp: SpeciesParams):
                         e = ph[k * 7 + 3 + d] - sgn * gquat[k * 4 + d]
                         acc_q = acc_q + D[:, k * 7 + 3 + d] * e
                     grad = grad + 2.0 * (wpos[k] * acc_p + wrot[k] * acc_q)
+                if sec_terms:
+                    grad = grad + torch.stack([sec_grad(x, v) for v in range(V)])
                 l1 = 0.0
                 for v in range(V):
                     l1 = l1 + torch.abs(grad[v])
@@ -211,8 +311,12 @@ def make_species_inner(sp: SpeciesParams):
                 # reciprocal and round differently from the JAX body)
                 scale = torch.full_like(l1, sp.h) / (l1 + 1e-12)
                 gdir = grad * scale
-                f1, _ = f_of(x - gdir)
-                f3, _ = f_of(x + gdir)
+                xm, xp = x - gdir, x + gdir
+                f1, _ = f_of(xm)
+                f3, _ = f_of(xp)
+                if sec_terms:
+                    f1 = f1 + sec_of(xm)
+                    f3 = f3 + sec_of(xp)
                 if sp.memetic == "q":
                     # quadratic fit (reference :498-516)
                     v1, v2 = f2 - f1, f3 - f2
@@ -244,8 +348,9 @@ def _ptr(t):
 
 
 class SpeciesKernel:
-    """The species step for one :class:`SpeciesParams`; call it on the
-    ``(rows, N)`` tensors of :func:`make_species_inner`.
+    """The species step for one :class:`SpeciesParams` and set of secondary
+    terms; call it on the ``(rows, N)`` tensors of :func:`make_species_inner`
+    (``keeps`` and ``sec`` last iff ``sec_terms``).
 
     ``SpeciesKernel.launches`` counts CUDA kernel launches over all
     instances; it is incremented only where the CUDA kernel is launched.
@@ -253,11 +358,13 @@ class SpeciesKernel:
 
     launches = 0
 
-    def __init__(self, sp: SpeciesParams):
+    def __init__(self, sp: SpeciesParams, sec_terms=()):
         if any(s + 4 > sp.V for s in sp.quat_slices):
             raise ValueError(f"quat_slices {sp.quat_slices} exceed V={sp.V}")
         self.sp = sp
-        self.inner = make_species_inner(sp)
+        self.sec_terms = tuple(sec_terms)
+        self.sec_mask = sec_term_mask(self.sec_terms)
+        self.inner = make_species_inner(sp, self.sec_terms)
         V, K = sp.V, sp.K
         self.rows = (("genes", _P * V), ("grads", _P * V), ("tips0", 7 * K),
                      ("deltas", 7 * V * K), ("gpos", 3 * K), ("gquat", 4 * K),
@@ -265,10 +372,15 @@ class SpeciesKernel:
                      ("cmax", V))
 
     def __call__(self, genes, grads, tips0, deltas, gpos, gquat, wpos, wrot,
-                 span, cmin, cmax, noise, rates):
+                 span, cmin, cmax, noise, rates, keeps=None, sec=None):
         """One species step; returns ``(genes', grads')``."""
+        if bool(self.sec_terms) != (keeps is not None and sec is not None):
+            raise ValueError("pass keeps and sec exactly when the step has "
+                             "secondary terms")
         args = (genes, grads, tips0, deltas, gpos, gquat, wpos, wrot, span,
                 cmin, cmax, noise, rates)
+        if self.sec_terms:
+            args += (keeps, sec)
         dev = genes.device
         if dev.type == "cpu":
             return self.inner(*args)
@@ -296,6 +408,12 @@ class SpeciesKernel:
             check(t, (r, N), name)
         check(args[11], (sp.gens, sp.V, sp.C, N), "noise")
         check(args[12], (sp.gens, sp.C, N), "rates")
+        if self.sec_terms:
+            check(args[13], (sp.gens, 1, N), "keeps")
+            check(args[14], (8 * sp.V, N), "sec")
+            keeps, sec = args[13], args[14]
+        else:
+            keeps = sec = genes                          # unread
 
         lib = load("species")
         lib.species_has_shape.argtypes = [ctypes.c_int] * 2
@@ -311,11 +429,13 @@ class SpeciesKernel:
         genes_o, grads_o = torch.empty_like(genes), torch.empty_like(genes)
         fn = lib.species_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_uint]
-                       + [ctypes.c_void_p] * 16)
+        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_uint,
+                                            ctypes.c_uint]
+                       + [ctypes.c_void_p] * 18)
         rc = fn(sp.V, sp.K, N, sp.gens, sp.C, sp.mem_iters,
-                _MEMETIC_CODE[sp.memetic], sp.h, qmask,
-                *(_ptr(t) for t in args), _ptr(genes_o), _ptr(grads_o),
+                _MEMETIC_CODE[sp.memetic], sp.h, qmask, self.sec_mask,
+                *(_ptr(t) for t in args[:13]), _ptr(keeps), _ptr(sec),
+                _ptr(genes_o), _ptr(grads_o),
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
             raise RuntimeError(f"species launch failed: CUDA error {rc}")

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout
-(the hash is of the source, so an edited source is rebuilt), for
+(the hash is of the source and the shared ``csrc/*.cuh`` headers, so an
+edited source is rebuilt), for
 ``sm_90a``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -17,6 +18,7 @@ import time: the CPU tests import every module and have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -53,8 +55,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(name)).encode())
+    """The library path, named by a hash of the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1(" ".join(_flags(name)).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -16,11 +16,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["megastep_inputs", "species_inputs", "lane_agreement", "max_abs_err"]
+__all__ = ["megastep_inputs", "species_inputs", "sec_rows", "lane_agreement",
+           "max_abs_err"]
+
+
+def sec_rows(model, sec_terms, N: int, rng, weight: float = 0.05):
+    """numpy packed secondary rows ``(8·V, N)`` (bio2_step.SEC_ROWS order)
+    for every variable of ``model`` active, as ``engine._secondary_rows``
+    builds them for goals of weight ``weight`` in ``sec_terms``: α and γ
+    ``w²·(vw·bounded)²``, β ``w²·vw²``, δ ``w²`` with the velocity weights
+    ``vw``; the joint_variable targets ``tbar`` and the seed drawn per
+    species pair from ``rng`` in the bounds, the centers and half spans
+    from the bounds."""
+    b = model._np_bounds
+    V = model.nvars
+    rcp = b["max_velocity_rcp"]
+    vw = rcp / rcp.sum() if rcp.sum() > 0 else np.full(V, 1.0 / V)
+    bnd = np.isfinite(b["clip_max"]).astype(np.float64)
+    w2 = weight * weight
+    coef = {"alpha": w2 * (vw * bnd) ** 2, "beta": w2 * vw ** 2,
+            "gamma": w2 * (vw * bnd) ** 2, "delta": np.full(V, w2)}
+    zero = np.zeros((V, N))
+
+    def rows(x):
+        return np.tile(np.asarray(x, np.float64)[:, None], (1, N))
+
+    def pairs(x):
+        return np.repeat(x, 2, axis=0)[:N].T
+
+    lo, hi = b["min"], b["max"]
+    tbar = pairs(rng.uniform(lo, hi, size=((N + 1) // 2, V)))
+    seed = pairs(rng.uniform(lo, hi, size=((N + 1) // 2, V)))
+    out = [rows(coef[t]) if t in sec_terms else zero
+           for t in ("alpha", "beta", "gamma", "delta")]
+    out += [tbar if "delta" in sec_terms else zero, rows(0.5 * (lo + hi)),
+            rows(0.5 * b["span"]), seed]
+    return np.ascontiguousarray(np.concatenate(out, 0), dtype=np.float32)
 
 
 def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
-                    spread: float = 1e-3, with_noise: bool = True):
+                    spread: float = 1e-3, with_noise: bool = True,
+                    sec_terms=()):
     """numpy ``(state, consts, noise)`` for one megastep launch on ``N``
     lanes of ``model``/``tip`` (one pose goal, K = 1), made from ``seed``:
     a reachable target per species pair (exact FK of a uniform q*,
@@ -28,7 +64,10 @@ def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
     noise of ``spread`` rad — the state of a solve under way — the model's
     bounds, and noise tensors with the real rate ladder.
     ``noise = (noise, rates, wipe_u, wipe_g)``, or None without
-    ``with_noise`` (in-kernel RNG runs).
+    ``with_noise`` (in-kernel RNG runs).  With ``sec_terms`` the consts end
+    with the packed secondary rows (:func:`sec_rows`) and ``noise`` with
+    the pre-selection uniforms ``keep (steps·gens, 1, N)``, drawn after
+    everything else (the other inputs do not change).
 
     Far from a solution the memetic line search divides differences of
     nearly equal fitness values, so two correct implementations that round
@@ -69,21 +108,25 @@ def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
         rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
         rows(b["min"]), rows(b["max"]),
     )
-    if not with_noise:
-        return state, consts, None
+    noise = None
     sg = n_steps * sp.gens
-    k = rng.integers(0, 16, size=(sg, sp.C, N))
-    noise = (
-        rng.normal(size=(sg, V, sp.C, N)).astype(f32),
-        np.exp2(k - 23.0).astype(f32),
-        rng.uniform(size=(n_steps, 1, N)).astype(f32),
-        rng.uniform(size=(n_steps, V, N)).astype(f32),
-    )
+    if with_noise:
+        k = rng.integers(0, 16, size=(sg, sp.C, N))
+        noise = (
+            rng.normal(size=(sg, V, sp.C, N)).astype(f32),
+            np.exp2(k - 23.0).astype(f32),
+            rng.uniform(size=(n_steps, 1, N)).astype(f32),
+            rng.uniform(size=(n_steps, V, N)).astype(f32),
+        )
+    if sec_terms:
+        consts += (sec_rows(model, sec_terms, N, rng),)
+        if with_noise:
+            noise += (rng.uniform(size=(sg, 1, N)).astype(f32),)
     return state, consts, noise
 
 
 def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
-                   spread: float = 1e-3):
+                   spread: float = 1e-3, sec_terms=()):
     """numpy arguments of one species step (:class:`SpeciesKernel` order)
     on ``N`` lanes of ``model``/``tip`` with every variable active (K = 1),
     made from ``seed``: a solve under way as in :func:`megastep_inputs` —
@@ -91,7 +134,9 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
     quaternion blocks are normalized), both parents ``spread`` off it —
     then ``tips0``/``deltas`` from the port's linearizer at parent 0, pose
     weights of bench.py's goal (so both fitness terms are exercised), the
-    model's bounds, and noise and rates with the real rate ladder."""
+    model's bounds, and noise and rates with the real rate ladder; with
+    ``sec_terms`` also ``keeps (gens, 1, N)`` and the packed secondary rows
+    (:func:`sec_rows`), drawn after everything else."""
     from ..kinematics import make_fk, make_linearizer
 
     V, K = sp.V, sp.K
@@ -118,7 +163,7 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
 
     k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
-    return (
+    args = (
         genes,
         (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
         np.ascontiguousarray(tips0[:, 0].numpy().T),
@@ -131,6 +176,10 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
         rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
         np.exp2(k - 23.0).astype(f32),
     )
+    if sec_terms:
+        args += (rng.uniform(size=(sp.gens, 1, N)).astype(f32),
+                 sec_rows(model, sec_terms, N, rng))
+    return args
 
 
 def lane_agreement(outs_a, outs_b, rtol=1e-5, atol=1e-6):

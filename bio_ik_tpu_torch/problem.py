@@ -6,9 +6,13 @@ deduped tip list, the active-variable set, per-kind struct-of-arrays goal
 groups whose numeric parameters live in the ``data`` dict from
 :meth:`Problem.make_data`, and the vectorized acceptance test.
 
-This slice carries the position, orientation and pose kinds.  Every other
-goal kind raises ``NotImplementedError`` at construction; they are queued
-in ROADMAP.md (port queue item 1).
+This port carries the position, orientation and pose kinds and the five
+joint-space kinds (avoid_joint_limits, center_joints, regularization,
+minimal_displacement, joint_variable), as primary or secondary goals.
+Every other goal kind raises ``NotImplementedError`` at construction,
+naming its ROADMAP.md port queue item: item 1 for the directional and
+distance kinds (they run in the megastep kernel), item 5 for touch,
+balance and the function goals (the unfused solvers evaluate them).
 """
 
 from __future__ import annotations
@@ -34,7 +38,10 @@ from .robot.model import RobotModel
 
 __all__ = ["Problem", "GoalGroup"]
 
-_PORTED_KINDS = ("position", "orientation", "pose")
+_JOINT_KINDS = ("avoid_joint_limits", "center_joints", "regularization",
+                "minimal_displacement", "joint_variable")
+_PORTED_KINDS = ("position", "orientation", "pose") + _JOINT_KINDS
+_UNFUSED_KINDS = ("touch", "balance", "link_function", "joint_function")
 
 
 def _norm(v):
@@ -87,10 +94,38 @@ class Problem:
                 tip_links.append(link)
             return tip_links.index(link)
 
+        for g in self.goal_list:
+            kind = _KIND_OF.get(type(g))
+            if kind not in _PORTED_KINDS:
+                item = 5 if kind in _UNFUSED_KINDS else 1
+                raise NotImplementedError(
+                    f"goal kind {kind or type(g).__name__!r} is not ported yet "
+                    f"(ROADMAP.md, port queue item {item})")
+            # secondary goals are joint-space goals (JAX problem.py:154-168;
+            # joint_function, the other one, raised above)
+            if g.secondary and kind not in _JOINT_KINDS:
+                raise ValueError(
+                    f"secondary goals must be joint-space goals, got {type(g).__name__}")
+
         if active_variables is None:
             active = list(model.actuated_variables(exclude_fixed_joints=fixed_joints))
         else:
             active = list(active_variables)
+        # variables named by goals join the active set unless their joint is
+        # fixed (reference: problem.cpp:102-204)
+        fixed = set(fixed_joints)
+        for g in self.goal_list:
+            if isinstance(g, G.JointVariableGoal):
+                n = g.variable_name
+                if n not in model.var_index:
+                    raise ValueError(f"unknown variable {n!r}")
+                v = model.var_index[n]
+                joint_of_v = None
+                for li, vs in enumerate(model.vstart):
+                    if vs >= 0 and vs <= v < vs + model.vcount[li]:
+                        joint_of_v = model.joint_names[li]
+                if v not in active and joint_of_v not in fixed:
+                    active.append(v)
         self.active_vars = active
         V = len(active)
         av = np.asarray(active, dtype=np.int64)
@@ -119,22 +154,14 @@ class Problem:
         self.secondary: List[GoalGroup] = []
         pending: Dict[Tuple[str, bool], List[Tuple[G.Goal, int]]] = {}
         for g in self.goal_list:
-            kind = _KIND_OF.get(type(g))
-            if kind not in _PORTED_KINDS:
-                raise NotImplementedError(
-                    f"goal kind {kind or type(g).__name__!r} is not ported yet "
-                    "(ROADMAP.md, port queue item 1: non-pose goal kinds and "
-                    "secondary goals)")
-            if g.secondary:
-                raise ValueError(
-                    f"secondary goals must be joint-space goals, got {type(g).__name__}")
-            slot = tip_slot(g.link)
+            kind = _KIND_OF[type(g)]
+            slot = tip_slot(g.link) if getattr(g, "link", "") else -1
             pending.setdefault((kind, g.secondary), []).append((g, slot))
 
         for (kind, secondary), items in pending.items():
-            grp = _BUILDERS[kind](items)
+            grp = _BUILDERS[kind](self, items)
             grp.kind = kind
-            grp.goal_type = kind
+            grp.goal_type = kind if kind in _POSE_TYPES else "unknown"
             (self.secondary if secondary else self.primary).append(grp)
 
         self.tip_links = tip_links
@@ -171,14 +198,21 @@ class Problem:
         ``tips (..., T, 7)`` packed, ``qa (..., V)``."""
         total = torch.zeros(qa.shape[:-1], dtype=self.tdtype, device=qa.device)
         for grp, gdata in zip(self.primary, data["primary"]):
-            e = _EVALUATORS[grp.kind](grp, gdata, tips)
+            e = _EVALUATORS[grp.kind](self, grp, gdata, tips, qa, data)
             total = total + torch.sum(gdata["weight_sq"] * e, dim=-1)
         return total
 
     def fitness_secondary(self, qa, data):
-        """Secondary fitness; zero, since this slice has no secondary goals
-        (ROADMAP.md, port queue item 1)."""
-        return torch.zeros(qa.shape[:-1], dtype=self.tdtype, device=qa.device)
+        """Secondary fitness on joint variables only (reference:
+        ik_base.h:163-185, evaluated against null tip frames)."""
+        total = torch.zeros(qa.shape[:-1], dtype=self.tdtype, device=qa.device)
+        for grp, gdata in zip(self.secondary, data["secondary"]):
+            e = _EVALUATORS[grp.kind](self, grp, gdata, None, qa, data)
+            total = total + torch.sum(gdata["weight_sq"] * e, dim=-1)
+        return total
+
+    def fitness_combined(self, tips, qa, data):
+        return self.fitness(tips, qa, data) + self.fitness_secondary(qa, data)
 
     @property
     def has_secondary(self) -> bool:
@@ -192,7 +226,18 @@ class Problem:
         dpos, drot, dtwist = self.dpos, self.drot, self.dtwist
         ok = torch.ones(tips_frame.pos.shape[:-2], dtype=torch.bool,
                         device=tips_frame.pos.device)
+        tips = None
         for grp, gdata in zip(self.primary, data["primary"]):
+            if grp.goal_type == "unknown":
+                # joint-space primaries: weighted error below the tighter of
+                # the two tolerances (reference: problem.cpp:323-338)
+                dmax = min(dpos, dtwist)
+                if math.isfinite(dmax):
+                    if tips is None:
+                        tips = torch.cat([tips_frame.pos, tips_frame.quat], -1)
+                    e = _EVALUATORS[grp.kind](self, grp, gdata, tips, qa, data)
+                    ok &= torch.all(gdata["weight_sq"] * e < dmax * dmax, dim=-1)
+                continue
             slots = torch.as_tensor(grp.tip_slots, device=ok.device)
             tp = tips_frame.pos[..., slots, :]
             tq = tips_frame.quat[..., slots, :]
@@ -252,6 +297,9 @@ _KIND_OF = {
 }
 
 
+_POSE_TYPES = ("position", "orientation", "pose")
+
+
 def _simple_group(items, **param_fns) -> GoalGroup:
     grp = GoalGroup(kind="")
     grp.tip_slots = np.asarray([slot for _, slot in items], dtype=np.int64)
@@ -261,16 +309,42 @@ def _simple_group(items, **param_fns) -> GoalGroup:
     return grp
 
 
+def _single_group(items) -> GoalGroup:
+    grp = GoalGroup(kind="")
+    grp.weight_sq = np.asarray([g.weight**2 for g, _ in items])
+    return grp
+
+
+def _build_jv(problem, items):
+    """joint_variable: each goal's active slot (−1 when its variable is not
+    active) and full-vector index, and its target as a data parameter."""
+    grp = _single_group(items)
+    slots, vidx = [], []
+    for g, _ in items:
+        v = problem.model.var_index[g.variable_name]
+        slots.append(problem.active_vars.index(v) if v in problem.active_vars else -1)
+        vidx.append(v)
+    grp.static["slots"] = np.asarray(slots, np.int64)
+    grp.static["vidx"] = np.asarray(vidx, np.int64)
+    grp.params["target"] = np.asarray([g.variable_position for g, _ in items])
+    return grp
+
+
 _BUILDERS = {
-    "position": lambda items: _simple_group(items, position=lambda g: g.position),
-    "orientation": lambda items: _simple_group(
+    "position": lambda p, items: _simple_group(items, position=lambda g: g.position),
+    "orientation": lambda p, items: _simple_group(
         items, orientation=lambda g: _norm(g.orientation)),
-    "pose": lambda items: _simple_group(
+    "pose": lambda p, items: _simple_group(
         items,
         position=lambda g: g.position,
         orientation=lambda g: _norm(g.orientation),
         rotation_scale_sq=lambda g: g.rotation_scale**2,
     ),
+    "avoid_joint_limits": lambda p, items: _single_group(items),
+    "center_joints": lambda p, items: _single_group(items),
+    "regularization": lambda p, items: _single_group(items),
+    "minimal_displacement": lambda p, items: _single_group(items),
+    "joint_variable": _build_jv,
 }
 
 
@@ -285,25 +359,77 @@ def _quat_err_sq(tq, gq):
     return torch.minimum(dm, dp)
 
 
-def _eval_position(grp, gdata, tips):
+def _eval_position(problem, grp, gdata, tips, qa, data):
     tp, _ = _tip_pq(tips, grp)
     return torch.sum(torch.square(tp - gdata["position"]), dim=-1)
 
 
-def _eval_orientation(grp, gdata, tips):
+def _eval_orientation(problem, grp, gdata, tips, qa, data):
     _, tq = _tip_pq(tips, grp)
     return _quat_err_sq(tq, gdata["orientation"])
 
 
-def _eval_pose(grp, gdata, tips):
+def _eval_pose(problem, grp, gdata, tips, qa, data):
     tp, tq = _tip_pq(tips, grp)
     ep = torch.sum(torch.square(tp - gdata["position"]), dim=-1)
     er = _quat_err_sq(tq, gdata["orientation"])
     return ep + gdata["rotation_scale_sq"] * er
 
 
+# ---- joint-space goals (reference: goal_types.h:379-499) -----------------
+# each returns (..., count): the same per-lane error for every instance
+
+
+def _per_instance(e, grp):
+    return e[..., None].expand(e.shape + (grp.count,))
+
+
+def _eval_ajl(problem, grp, gdata, tips, qa, data):
+    d = torch.abs(qa - problem.amid) * 2.0 - problem.aspan * 0.5
+    d = torch.clamp(d, min=0.0) * problem.velocity_weights * problem.abounded
+    return _per_instance(torch.sum(d * d, dim=-1), grp)
+
+
+def _eval_cj(problem, grp, gdata, tips, qa, data):
+    d = (qa - problem.amid) * problem.velocity_weights * problem.abounded
+    return _per_instance(torch.sum(d * d, dim=-1), grp)
+
+
+def _eval_reg(problem, grp, gdata, tips, qa, data):
+    d = qa - data["seed_active"]
+    return _per_instance(torch.sum(d * d, dim=-1), grp)
+
+
+def _eval_md(problem, grp, gdata, tips, qa, data):
+    d = (qa - data["seed_active"]) * problem.velocity_weights
+    return _per_instance(torch.sum(d * d, dim=-1), grp)
+
+
+def _gather_goal_vars(problem, slots, vidx, qa, data):
+    """Variable values for goal variables: from ``qa`` when active, else
+    from the seed (reference: GoalContext::getVariablePosition negative-
+    index convention, goal.h:70-77)."""
+    dev = qa.device
+    from_active = qa[..., torch.as_tensor(np.maximum(slots, 0), device=dev)]
+    from_seed = data["seed_full"][..., torch.as_tensor(vidx, device=dev)]
+    return torch.where(torch.as_tensor(slots >= 0, device=dev), from_active,
+                       from_seed.to(from_active.dtype))
+
+
+def _eval_jv(problem, grp, gdata, tips, qa, data):
+    vals = _gather_goal_vars(problem, grp.static["slots"], grp.static["vidx"],
+                             qa, data)
+    d = vals - gdata["target"]
+    return d * d
+
+
 _EVALUATORS = {
     "position": _eval_position,
     "orientation": _eval_orientation,
     "pose": _eval_pose,
+    "avoid_joint_limits": _eval_ajl,
+    "center_joints": _eval_cj,
+    "regularization": _eval_reg,
+    "minimal_displacement": _eval_md,
+    "joint_variable": _eval_jv,
 }

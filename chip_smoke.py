@@ -4,48 +4,54 @@
     python3 chip_smoke.py                  # every phase (what CI runs)
     python3 chip_smoke.py --only build,check
 
-Drives ``bio_ik_tpu_torch`` (never JAX) through its two paths — the
-fullstep tier (bench.py's configuration) and the species tier (floating and
-planar chains) — and holds each hand-written CUDA kernel against its plain
-torch version.  Phases, each printing one JSON line; any failure raises and
-exits non-zero:
+Drives ``bio_ik_tpu_torch`` (never JAX) through its paths — the fullstep
+tier (bench.py's configuration, and the reference's recommended
+regularized one), the species tier (floating and planar chains, with and
+without the regularizers) and the FP32 peak calibration — and holds each
+hand-written CUDA kernel against its plain torch version.  Phases, each
+printing one JSON line and its seconds; any failure raises and exits
+non-zero:
 
-  1. build    — card name and power limit, torch/CUDA versions, nvcc build
-                of every kernel source (megastep.cu, species.cu, in
-                parallel) and their ptxas reports;
-  2. check    — megastep kernel vs plain version in noise-tensor mode at the
-                main path's sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8,
-                n_steps=2, N=4096): ≥ 85 % of lanes agree (beside the
-                plain version on the CPU vs the card, the floor between two
-                correct versions); exact FK and fitness with no selection
-                agree on all 131 072 lanes of the first launch (atol 1e-5);
-  3. rng      — in-kernel Philox vs the plain version's Philox at the lane
-                count of each of the four launches (two steps, ≥ 85 % of
-                lanes), clt4 moments over ≥ 1 M draws, rate-bin
-                uniformity, bitwise reproducibility, salt locality;
-  4. main     — bench.py's configuration through AdaptiveBatchSolver at
-                B = 65 536: success, median position error, solves/s,
-                launches per solve_batch (must be 4), determinism, the
-                success flags re-derived from the returned q, and a small
-                solve on the card beside the same on the CPU plain path;
-  5. species_check — species kernel vs plain version on identical noise
-                tensors (free_arm, V=10, at the species path's 524 288 lanes;
-                planar_arm, V=5, at its 131 072): ≥ 85 % of lanes agree,
-                beside the plain version on the CPU vs the card at 4 096
-                lanes and the agreement per stage (generations only,
-                memetic only);
-  6. species_main — the JAX suite's free_arm_floating_base row (one
-                PositionGoal on "tool", bio2_memetic, dpos 5e-3, 16 steps,
-                4 islands) through IKSolver.solve_batch at B = 65 536, then
-                planar_arm at B = 16 384: success, median position error,
-                solves/s, species launches per solve_batch (must be 16),
-                determinism, success flags re-derived from the returned q,
-                the share of unit floating quaternions, peak memory;
-  7. times    — the megastep at each phase's launch shape and the species
-                kernel at its launch shape (CUDA events), each beside its
-                plain version and its FLOP/byte bound;
-  8. profile  — torch.profiler over one solve_batch of each path: device
-                time by kernel, device busy and idle share.
+  build           — card name and power limit, torch/CUDA versions, nvcc
+                    build of every kernel source (megastep.cu, species.cu,
+                    peak.cu, in parallel) and their ptxas reports;
+  check           — megastep vs plain version, noise-tensor mode, main-path
+                    sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
+                    steps, N=4096): ≥ 85 % of lanes agree, beside the plain
+                    version on the CPU vs the card; exact FK and fitness
+                    with no selection on all 131 072 lanes (atol 1e-5);
+  rng             — in-kernel Philox vs the plain version's at each main-path
+                    launch's lane count (≥ 85 %), clt4 moments, rate bins,
+                    bitwise repeat, salt locality;
+  sec_check       — the secondary-goal megastep (the regularizers' terms,
+                    and all four) at the regularized path's 131 072 lanes in
+                    both RNG modes (≥ 85 %, beside the CPU-vs-card floor);
+                    the species kernel with the same terms, bitwise;
+  fullstep_check  — the fullstep kernel vs make_fullstep_inner at 131 072
+                    lanes in both RNG modes (≥ 85 %), its time and bound;
+  main            — bench.py's configuration through AdaptiveBatchSolver at
+                    B = 65 536: success, median position error, solves/s,
+                    launches per solve_batch (4), determinism, the flags
+                    re-derived from the returned q, a small card/CPU solve;
+  regularized_main — PoseGoal + MinimalDisplacementGoal(0.05) +
+                    AvoidJointLimitsGoal(0.05) on bench_suite's ladder at
+                    B = 65 536: the same fields, the median secondary fitness
+                    beside a pose-only solve of the same targets, and
+                    IKSolver.for_tips building the same problem;
+  species_check   — species kernel vs plain version (free_arm at 524 288
+                    lanes, planar_arm at 131 072): bitwise, by stage, and
+                    the CPU-vs-card floor;
+  species_main    — the JAX suite's free_arm_floating_base row at B = 65 536,
+                    then planar_arm at B = 16 384: the main fields (16
+                    launches), unit quaternions, peak memory;
+  species_sec_main — free_arm with the two regularizers at B = 16 384;
+  times           — every kernel instance at its paths' launch shapes (CUDA
+                    events) beside its plain version and FLOP/byte bound;
+  profile         — torch.profiler over one solve_batch of each path: device
+                    time by kernel, device busy and idle share;
+  mfu             — ``python -m bio_ik_tpu_torch.tools.bench_mfu``'s
+                    measurements; the peak kernel bitwise vs its plain
+                    version at T = 64.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -73,6 +79,21 @@ SPECIES_ISLANDS = 4
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SOURCES = ("megastep", "species", "peak")
+# the reference's recommended configuration (tools/bench_suite.py:198-210):
+# PoseGoal + MinimalDisplacementGoal(0.05) + AvoidJointLimitsGoal(0.05)
+REG_PHASES = ((1, 32), (2, 64), (4, 128), (8, 256))
+REG_FRACTIONS = (0.3, 0.1, 0.03)
+REG_WEIGHT = 0.05
+REG_QUEUE = 4
+REG_TERMS = ("beta", "gamma")
+ALL_TERMS = ("alpha", "beta", "gamma", "delta")
+# the species tier with the same regularizers: free_arm at this batch
+B_SPECIES_SEC = 16384
+
+
+KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by")
 
 
 def emit(obj):
@@ -85,14 +106,30 @@ def smi_line():
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def phase_shapes():
-    """(lanes, n_steps) of the main path's four megastep launches: B scenarios
-    × islands × 2 species, B cut to int(B·fraction) in each retry phase."""
+def phase_shapes(phases=PHASES, fractions=FRACTIONS):
+    """(lanes, n_steps) of a ladder's four megastep launches: B scenarios ×
+    islands × 2 species, B cut to int(B·fraction) in each retry phase."""
     out = []
-    for i, (islands, steps) in enumerate(PHASES):
-        b = B_MAIN if i == 0 else max(1, int(B_MAIN * FRACTIONS[i - 1]))
+    for i, (islands, steps) in enumerate(phases):
+        b = B_MAIN if i == 0 else max(1, int(B_MAIN * fractions[i - 1]))
         out.append((b * islands * 2, steps))
     return out
+
+
+def queued_ms(s, keys, data, queue):
+    """Best of ``REPEATS`` × ``queue`` queued ``s.solve_batch`` calls with
+    fresh keys (bench.py's timing): the per-batch times in ms."""
+    import torch
+    from bio_ik_tpu_torch.engine import fold_in
+
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for r in range(queue):
+            s.solve_batch(fold_in(keys, 1000 + r), data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / queue * 1e3)
+    return times
 
 
 def cuda_ms(fn, reps):
@@ -124,38 +161,41 @@ class Smoke:
         self.sp_cpu_models = {u: RobotModel.from_urdf_file(asset_path(u),
                                                            device="cpu")
                               for u, _, _ in SPECIES_PATHS}
-        self.kernels = {"megastep": {}, "species": {}}
+        self.kernels = {name: {} for name in ("megastep", "species", "fullstep",
+                                              "peak")}
 
     # -------------------------------------------------------------- 1 --
     def build(self):
         import torch
         from bio_ik_tpu_torch.kernels.build import build_all, ptxas_report
 
-        secs = build_all(["megastep", "species"])
+        secs = build_all(list(SOURCES))
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": secs,
               "ptxas": {n: ptxas_report(n).strip().splitlines()
-                        for n in ("megastep", "species")}})
+                        for n in SOURCES}})
 
-    def _mega(self, n_steps, gens=8, mem_iters=8, memetic="q"):
+    def _mega(self, n_steps, gens=8, mem_iters=8, memetic="q", sec_terms=(),
+              model=None):
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
 
         sp = SpeciesParams(V=7, K=1, C=16, gens=gens, mem_iters=mem_iters,
                            memetic=memetic)
-        return Megastep(self.model, [TIP], list(range(7)), [0], sp,
-                        n_steps), sp
+        return Megastep(model or self.model, [TIP], list(range(7)), [0], sp,
+                        n_steps, sec_terms=sec_terms), sp
 
-    def _inputs(self, sp, n_steps, N, seed=7, spread=1e-3, with_noise=True):
+    def _inputs(self, sp, n_steps, N, seed=7, spread=1e-3, with_noise=True,
+                sec_terms=(), dev=None):
         from bio_ik_tpu_torch.interop import tree_from_numpy
         from bio_ik_tpu_torch.kernels.checks import megastep_inputs
 
+        dev = dev or self.dev
         state, consts, noise = megastep_inputs(
             self.model, TIP, sp, n_steps, N, seed, spread=spread,
-            with_noise=with_noise)
-        return (tree_from_numpy(state, self.dev),
-                tree_from_numpy(consts, self.dev),
-                None if noise is None else tree_from_numpy(noise, self.dev))
+            with_noise=with_noise, sec_terms=sec_terms)
+        return (tree_from_numpy(state, dev), tree_from_numpy(consts, dev),
+                None if noise is None else tree_from_numpy(noise, dev))
 
     # -------------------------------------------------------------- 2 --
     def check(self):
@@ -278,7 +318,13 @@ class Smoke:
             raise AssertionError(f"RNG check failed: {out}")
 
     # -------------------------------------------------------------- 4 --
-    def _bench(self, model, B, phases=PHASES, fractions=FRACTIONS):
+    def _bench(self, model, B, phases=PHASES, fractions=FRACTIONS,
+               regularized=False):
+        """bench.py's configuration (or, ``regularized``, the reference's
+        recommended one: + MinimalDisplacementGoal + AvoidJointLimitsGoal,
+        tools/bench_suite.py:202-210) through AdaptiveBatchSolver: targets
+        from FK of numpy.random.default_rng(0) uniform draws in the bounds,
+        seeded at neutral_q()."""
         import numpy as np
         import torch
         import bio_ik_tpu_torch.goals as G
@@ -291,7 +337,11 @@ class Smoke:
         qg = np.random.default_rng(0).uniform(
             b["min"], b["max"], size=(B, model.nvars)).astype(np.float32)
         tg = fk(torch.as_tensor(qg, device=dev))
-        s = AdaptiveBatchSolver(model, [G.PoseGoal(link=TIP)],
+        goals = [G.PoseGoal(link=TIP)]
+        if regularized:
+            goals += [G.MinimalDisplacementGoal(weight=REG_WEIGHT),
+                      G.AvoidJointLimitsGoal(weight=REG_WEIGHT)]
+        s = AdaptiveBatchSolver(model, goals,
                                 SolverConfig(mode="bio2_memetic", dtwist=1e-3),
                                 phases=phases, fractions=fractions)
         data = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
@@ -302,13 +352,16 @@ class Smoke:
                             torch.arange(B, dtype=torch.int64)], -1).to(dev)
         return s, data, keys, fk, tg
 
-    def main(self):
+    def _drive(self, s, data, keys, fk, tg, queue, nlaunch):
+        """One path through ``s.solve_batch``: warm-up, launches of one call
+        (counts set to 0 just before it), determinism, best of 3 × ``queue``
+        queued batches, success, median position error and the success
+        flags re-derived from the returned q."""
         import numpy as np
         import torch
-        from bio_ik_tpu_torch.engine import fold_in
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
 
-        s, data, keys, fk, tg = self._bench(self.model, B_MAIN)
+        B = keys.shape[0]
         t0 = time.perf_counter()
         res = s.solve_batch(keys, data)          # warm-up (build, caches)
         torch.cuda.synchronize()
@@ -319,15 +372,8 @@ class Smoke:
         launches = Megastep.launches
         res2 = s.solve_batch(keys, data)
         det = all(torch.equal(a, b) for a, b in zip(res, res2))
-        Q = QUEUE
-        times = []
-        for _ in range(REPEATS):
-            t0 = time.perf_counter()
-            for r in range(Q):
-                out = s.solve_batch(fold_in(keys, 1000 + r), data)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) / Q)
-        dt = min(times)
+        times = queued_ms(s, keys, data, queue)
+        dt = min(times) / 1e3
         success = float(res.success.float().mean())
         perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
         med = float(perr.median())
@@ -337,6 +383,24 @@ class Smoke:
         qa = res.q[:, torch.as_tensor(p.active_vars, device=res.q.device)]
         recheck = p.check_solution(fk(res.q), qa, data)
         flags_agree = float((recheck == res.success).float().mean())
+        out = {"batch": B, "success_rate": success, "median_pos_err_m": med,
+               "solves_per_s": B * success / dt, "batch_time_ms": dt * 1e3,
+               "times_ms": times, "first_call_s": first_s,
+               "launches_per_solve_batch": launches, "deterministic": det,
+               "success_flags_recheck_agree": flags_agree}
+        if launches != nlaunch:
+            raise AssertionError(f"{launches} megastep launches per solve_batch")
+        if not det:
+            raise AssertionError("two runs with the same keys differ")
+        if flags_agree < 0.999:
+            raise AssertionError(f"success flags disagree with a re-check: {out}")
+        if not np.isfinite(med):
+            raise AssertionError(f"non-finite position error: {out}")
+        return res, qa, out
+
+    def main(self):
+        s, data, keys, fk, tg = self._bench(self.model, B_MAIN)
+        _, _, out = self._drive(s, data, keys, fk, tg, QUEUE, len(PHASES))
         # a small solve on the card and on the CPU plain path (same keys,
         # same Philox bits): statistically alike, not lane-identical —
         # trajectories far from a solution part ways on rounding
@@ -344,27 +408,69 @@ class Smoke:
         sg, dg, kg, _, _ = self._bench(self.model, Bs, ((1, 12), (2, 12)), (0.5,))
         sc, dc, kc, _, _ = self._bench(self.cpu_model, Bs, ((1, 12), (2, 12)), (0.5,))
         rg, rc = sg.solve_batch(kg, dg), sc.solve_batch(kc, dc)
-        out = {"phase": "main", "batch": B_MAIN, "success_rate": success,
-               "median_pos_err_m": med, "solves_per_s": B_MAIN * success / dt,
-               "batch_time_ms": dt * 1e3, "times_ms": [t * 1e3 for t in times],
-               "first_call_s": first_s, "launches_per_solve_batch": launches,
-               "deterministic": det,
-               "success_flags_recheck_agree": flags_agree,
+        out = {"phase": "main", **out,
                "small_solve_success_gpu_cpu": [float(rg.success.float().mean()),
                                                float(rc.success.float().mean())]}
         emit(out)
-        self.kernels["megastep"]["launches"] = launches
-        if launches != len(PHASES):
-            raise AssertionError(f"{launches} megastep launches per solve_batch")
-        if not det:
-            raise AssertionError("two runs with the same keys differ")
-        if flags_agree < 0.999:
-            raise AssertionError(f"success flags disagree with a re-check: {out}")
-        if not (success >= 0.999 and med <= 1.7e-6 and np.isfinite(med)):
+        self.kernels["megastep"]["launches"] = out["launches_per_solve_batch"]
+        if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 1.7e-6):
             raise AssertionError(f"quality below the JAX path's: {out}")
 
+    def regularized_main(self):
+        """Path (a): the reference's recommended configuration (pose +
+        minimal displacement + avoid joint limits, weight 0.05) at B = 65 536
+        through AdaptiveBatchSolver on the SEC megastep; its secondary
+        fitness beside the same targets solved pose-only; path (c),
+        IKSolver.for_tips with the plugin's regularizer weights, builds the
+        same problem."""
+        import torch
+        from bio_ik_tpu_torch import IKSolver, SolverConfig
+        from bio_ik_tpu_torch.interop import tree_map
+
+        s, data, keys, fk, tg = self._bench(self.model, B_MAIN, REG_PHASES,
+                                            REG_FRACTIONS, regularized=True)
+        eng = s.solvers[0].engine
+        assert eng.fullstep and eng.sec_terms == REG_TERMS, eng.sec_terms
+        res, qa, out = self._drive(s, data, keys, fk, tg, REG_QUEUE, len(REG_PHASES))
+        p = s.problem
+        fsec = float(p.fitness_secondary(qa, data).median())
+        # the same targets without the regularizers, measured by the
+        # regularized problem's secondary fitness
+        s0, d0, k0, _, _ = self._bench(self.model, B_MAIN, REG_PHASES, REG_FRACTIONS)
+        r0 = s0.solve_batch(k0, d0)
+        t0_ms = queued_ms(s0, k0, d0, REG_QUEUE)
+        qa0 = r0.q[:, torch.as_tensor(p.active_vars, device=r0.q.device)]
+        fsec0 = float(p.fitness_secondary(qa0, data).median())
+        ft = IKSolver.for_tips(self.model, [TIP], SolverConfig(
+            mode="bio2_memetic", dtwist=1e-3, minimal_displacement_weight=REG_WEIGHT,
+            avoid_joint_limits_weight=REG_WEIGHT, max_steps=32, steps_per_check=32))
+
+        def rows(solver, engine):
+            d = tree_map(lambda x: x[None], solver.make_data(
+                torch.as_tensor(self.model.neutral_q())))
+            return engine._secondary_rows(d, 1)
+
+        same = (ft.engine.sec_terms == eng.sec_terms
+                and torch.equal(rows(ft, ft.engine), rows(s, eng)))
+        out = {"phase": "regularized_main", **out,
+               "median_secondary_fitness": fsec,
+               "median_secondary_fitness_pose_only": fsec0,
+               "pose_only_success_rate": float(r0.success.float().mean()),
+               "pose_only_batch_time_ms": min(t0_ms),
+               "for_tips_same_problem": bool(same)}
+        emit(out)
+        self.kernels["megastep"]["regularized_launches"] = out["launches_per_solve_batch"]
+        if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 5.2e-4):
+            raise AssertionError(f"regularized quality below the limits: {out}")
+        if not fsec < fsec0:
+            raise AssertionError(f"the regularizers did not lower the secondary "
+                                 f"fitness: {fsec} vs {fsec0}")
+        if not same:
+            raise AssertionError("IKSolver.for_tips built another problem")
+
     # -------------------------------------------------------------- 5 --
-    def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None):
+    def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None,
+                      sec_terms=()):
         """A SpeciesKernel of the robot's species path and one step's
         arguments on ``N`` lanes (kernels/checks.species_inputs)."""
         from bio_ik_tpu_torch.interop import tree_from_numpy
@@ -375,8 +481,8 @@ class Smoke:
         model = self.sp_cpu_models[urdf]
         sp = SpeciesParams(V=model.nvars, K=1, gens=gens, mem_iters=mem_iters,
                            memetic=memetic, quat_slices=qs)
-        args = species_inputs(model, "tool", sp, N)
-        return SpeciesKernel(sp), tree_from_numpy(args, dev or self.dev)
+        args = species_inputs(model, "tool", sp, N, sec_terms=sec_terms)
+        return SpeciesKernel(sp, sec_terms), tree_from_numpy(args, dev or self.dev)
 
     def species_check(self):
         import torch
@@ -426,10 +532,12 @@ class Smoke:
         emit(out)
 
     # -------------------------------------------------------------- 6 --
-    def _species_bench(self, urdf, B):
-        """The JAX suite's floating-base row on ``urdf`` at batch ``B``:
-        targets from FK of numpy.random.default_rng(0) uniform draws in the
-        bounds, seeded at neutral_q()."""
+    def _species_bench(self, urdf, B, regularized=False):
+        """The JAX suite's floating-base row on ``urdf`` at batch ``B``
+        (with ``regularized``, plus MinimalDisplacementGoal and
+        AvoidJointLimitsGoal of weight 0.05): targets from FK of
+        numpy.random.default_rng(0) uniform draws in the bounds, seeded at
+        neutral_q()."""
         import numpy as np
         import torch
         import bio_ik_tpu_torch.goals as G
@@ -443,7 +551,11 @@ class Smoke:
         qg = np.random.default_rng(0).uniform(
             b["min"], b["max"], size=(B, model.nvars)).astype(np.float32)
         tg = fk(torch.as_tensor(qg, device=dev))
-        s = IKSolver(model, [G.PositionGoal(link="tool")],
+        goals = [G.PositionGoal(link="tool")]
+        if regularized:
+            goals += [G.MinimalDisplacementGoal(weight=REG_WEIGHT),
+                      G.AvoidJointLimitsGoal(weight=REG_WEIGHT)]
+        s = IKSolver(model, goals,
                      SolverConfig(mode="bio2_memetic", dpos=5e-3,
                                   dtwist=float("inf"), max_steps=16,
                                   islands=SPECIES_ISLANDS))
@@ -454,75 +566,107 @@ class Smoke:
                             torch.arange(B, dtype=torch.int64)], -1).to(dev)
         return s, data, keys, fk, tg
 
-    def species_main(self):
+    def _species_drive(self, urdf, B, regularized=False):
+        """One species-tier path through IKSolver.solve_batch: the fields of
+        :meth:`_drive` for the species kernel, the share of unit floating
+        quaternions and the peak memory."""
         import numpy as np
         import torch
-        from bio_ik_tpu_torch.engine import fold_in
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel
         from bio_ik_tpu_torch.robot.urdf import FLOATING
 
+        s, data, keys, fk, tg = self._species_bench(urdf, B, regularized)
+        assert not s.engine.fullstep
+        assert s.engine.sec_terms == (REG_TERMS if regularized else ())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = s.solve_batch(keys, data)          # warm-up
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        SpeciesKernel.launches = 0
+        res = s.solve_batch(keys, data)
+        torch.cuda.synchronize()
+        launches = SpeciesKernel.launches
+        res2 = s.solve_batch(keys, data)
+        det = all(torch.equal(a, b) for a, b in zip(res, res2))
+        peak = torch.cuda.max_memory_allocated()
+        times = queued_ms(s, keys, data, SPECIES_QUEUE)
+        dt = min(times) / 1e3
+        success = float(res.success.float().mean())
+        perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
+        med = float(perr.median())
+        p = s.problem
+        qa = res.q[:, torch.as_tensor(p.active_vars, device=res.q.device)]
+        recheck = p.check_solution(fk(res.q), qa, data)
+        flags_agree = float((recheck == res.success).float().mean())
+        model = self.sp_models[urdf]
+        qnorm_share = None
+        for li in range(model.nlinks):
+            if model.jtype[li] == FLOATING:
+                vs = int(model.vstart[li])
+                qn = res.q[:, vs + 3:vs + 7].norm(dim=-1)
+                qnorm_share = float(((qn - 1).abs() <= 1e-2).float().mean())
+        out = {"robot": urdf, "batch": B, "lanes": B * SPECIES_ISLANDS * 2,
+               "success_rate": success, "median_pos_err_m": med,
+               "solves_per_s": B * success / dt, "batch_time_ms": dt * 1e3,
+               "times_ms": times, "first_call_s": first_s,
+               "launches_per_solve_batch": launches, "deterministic": det,
+               "success_flags_recheck_agree": flags_agree,
+               "unit_quat_share": qnorm_share, "peak_mem_gb": peak / 1e9,
+               "peak_mem_above_inputs_gb": (peak - base_mem) / 1e9}
+        if regularized:
+            out["median_secondary_fitness"] = float(
+                p.fitness_secondary(qa, data).median())
+        fail = None
+        if launches != 16:
+            fail = f"{launches} species launches per solve_batch"
+        elif not det:
+            fail = "two runs with the same keys differ"
+        elif flags_agree < 0.999:
+            fail = "success flags disagree with a re-check"
+        elif not (success >= 0.999 and med <= 5e-4 and np.isfinite(med)):
+            fail = "species-tier quality below the limits"
+        del s, data, res, res2
+        torch.cuda.empty_cache()
+        return out, fail
+
+    def species_main(self):
         for urdf, B, _ in SPECIES_PATHS:
-            s, data, keys, fk, tg = self._species_bench(urdf, B)
-            assert not s.engine.fullstep
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base_mem = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            res = s.solve_batch(keys, data)          # warm-up
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            SpeciesKernel.launches = 0
-            res = s.solve_batch(keys, data)
-            torch.cuda.synchronize()
-            launches = SpeciesKernel.launches
-            res2 = s.solve_batch(keys, data)
-            det = all(torch.equal(a, b) for a, b in zip(res, res2))
-            peak = torch.cuda.max_memory_allocated()
-            times = []
-            for _ in range(REPEATS):
-                t0 = time.perf_counter()
-                for r in range(SPECIES_QUEUE):
-                    s.solve_batch(fold_in(keys, 1000 + r), data)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) / SPECIES_QUEUE)
-            dt = min(times)
-            success = float(res.success.float().mean())
-            perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
-            med = float(perr.median())
-            p = s.problem
-            qa = res.q[:, torch.as_tensor(p.active_vars, device=res.q.device)]
-            recheck = p.check_solution(fk(res.q), qa, data)
-            flags_agree = float((recheck == res.success).float().mean())
-            model = self.sp_models[urdf]
-            qnorm_share = None
-            for li in range(model.nlinks):
-                if model.jtype[li] == FLOATING:
-                    vs = int(model.vstart[li])
-                    qn = res.q[:, vs + 3:vs + 7].norm(dim=-1)
-                    qnorm_share = float(((qn - 1).abs() <= 1e-2).float().mean())
-            out = {"phase": "species_main", "robot": urdf, "batch": B,
-                   "lanes": B * SPECIES_ISLANDS * 2, "success_rate": success,
-                   "median_pos_err_m": med, "solves_per_s": B * success / dt,
-                   "batch_time_ms": dt * 1e3,
-                   "times_ms": [t * 1e3 for t in times], "first_call_s": first_s,
-                   "launches_per_solve_batch": launches, "deterministic": det,
-                   "success_flags_recheck_agree": flags_agree,
-                   "unit_quat_share": qnorm_share,
-                   "peak_mem_gb": peak / 1e9,
-                   "peak_mem_above_inputs_gb": (peak - base_mem) / 1e9}
-            emit(out)
+            out, fail = self._species_drive(urdf, B)
+            emit({"phase": "species_main", **out})
             if urdf == SPECIES_PATHS[0][0]:
-                self.kernels["species"]["launches"] = launches
-            if launches != 16:
-                raise AssertionError(f"{launches} species launches per solve_batch")
-            if not det:
-                raise AssertionError("two runs with the same keys differ")
-            if flags_agree < 0.999:
-                raise AssertionError(f"success flags disagree with a re-check: {out}")
-            if not (success >= 0.999 and med <= 5e-4 and np.isfinite(med)):
-                raise AssertionError(f"species-tier quality below the limits: {out}")
-            del s, data, res, res2
-            torch.cuda.empty_cache()
+                self.kernels["species"]["launches"] = out["launches_per_solve_batch"]
+            if fail:
+                raise AssertionError(f"{fail}: {out}")
+
+    def species_sec_main(self):
+        """Path (b): free_arm with the regularizers at B = 16 384 on the
+        species kernel's secondary-goal instance; its secondary fitness
+        beside the pose-only species path's solutions of the same targets."""
+        import torch
+
+        out, fail = self._species_drive(SPECIES_PATHS[0][0], B_SPECIES_SEC,
+                                         regularized=True)
+        # the same targets without the regularizers, measured by the
+        # regularized problem's secondary fitness
+        s, data, keys, _, _ = self._species_bench(SPECIES_PATHS[0][0],
+                                                  B_SPECIES_SEC, True)
+        s0, d0, k0, _, _ = self._species_bench(SPECIES_PATHS[0][0], B_SPECIES_SEC)
+        r0 = s0.solve_batch(k0, d0)
+        out["pose_only_batch_time_ms"] = min(queued_ms(s0, k0, d0, SPECIES_QUEUE))
+        p = s.problem
+        qa0 = r0.q[:, torch.as_tensor(p.active_vars, device=r0.q.device)]
+        out["median_secondary_fitness_pose_only"] = float(
+            p.fitness_secondary(qa0, data).median())
+        emit({"phase": "species_sec_main", **out})
+        self.kernels["species"]["regularized_launches"] = out["launches_per_solve_batch"]
+        if fail:
+            raise AssertionError(f"{fail}: {out}")
+        if not out["median_secondary_fitness"] < out["median_secondary_fitness_pose_only"]:
+            raise AssertionError(f"the regularizers did not lower the secondary "
+                                 f"fitness: {out}")
 
     # -------------------------------------------------------------- 8 --
     @staticmethod
@@ -561,36 +705,63 @@ class Smoke:
         """Where one solve_batch of each path spends device time."""
         s, data, keys, _, _ = self._bench(self.model, B_MAIN)
         emit({"phase": "profile", "path": "main", **self._profile(s, data, keys)})
+        s, data, keys, _, _ = self._bench(self.model, B_MAIN, REG_PHASES,
+                                          REG_FRACTIONS, regularized=True)
+        emit({"phase": "profile", "path": "regularized",
+              **self._profile(s, data, keys)})
         urdf, B, _ = SPECIES_PATHS[0]
         s, data, keys, _, _ = self._species_bench(urdf, B)
         emit({"phase": "profile", "path": "species", "robot": urdf, "batch": B,
               **self._profile(s, data, keys)})
+        del s, data, keys
+        s, data, keys, _, _ = self._species_bench(urdf, B_SPECIES_SEC, True)
+        emit({"phase": "profile", "path": "species_regularized", "robot": urdf,
+              "batch": B_SPECIES_SEC, **self._profile(s, data, keys)})
 
     # -------------------------------------------------------------- 7 --
+    def _mega_rows(self, shapes, sec_terms=()):
+        """The megastep (in-kernel Philox) at each (lanes, n_steps) launch
+        shape, CUDA events, beside its bound from the TPU cost model's
+        counts (which leave out the secondary terms); with ``sec_terms`` the
+        secondary-goal kernel beside the pose-only one at the same shape."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import megastep_flops_per_lane
+
+        rows = []
+        for N, steps in shapes:
+            row = {"lanes": N, "n_steps": steps}
+            salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+            for key, terms in (("ms", sec_terms),) + (
+                    (("pose_only_ms", ()),) if sec_terms else ()):
+                mega, sp = self._mega(steps, sec_terms=terms)
+                state, consts, _ = self._inputs(sp, steps, N, with_noise=False,
+                                                sec_terms=terms)
+                run = lambda: mega(state, consts, seed=99, salt=salt)  # noqa: E731
+                run()
+                torch.cuda.synchronize()
+                row[key] = cuda_ms(run, 5)
+            flops = megastep_flops_per_lane(sp, steps) * N
+            V, K = sp.V, sp.K
+            nbytes = 4 * N * (2 * (4 * V + 2 + V + 7) + 5 * V + 9 * K + 1 + 1
+                              + (8 * V if sec_terms else 0))
+            ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            row.update(gflop=flops / 1e9, bytes=nbytes,
+                       bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                       flop_rate_tflops=flops / row["ms"] / 1e9,
+                       ns_per_lane_step=row["ms"] * 1e6 / (N * steps))
+            rows.append(row)
+        return rows
+
     def times(self):
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
             megastep_flops_per_lane, philox_draw)
 
-        rows = []
         shapes = phase_shapes()
-        for N, steps in shapes:
-            mega, sp = self._mega(steps)
-            state, consts, _ = self._inputs(sp, steps, N, with_noise=False)
-            salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
-            run = lambda: mega(state, consts, seed=99, salt=salt)  # noqa: E731
-            run()
-            torch.cuda.synchronize()
-            ms = cuda_ms(run, 5)
-            flops = megastep_flops_per_lane(sp, steps) * N
-            V, K = sp.V, sp.K
-            nbytes = 4 * N * (2 * (4 * V + 2 + V + 7) + 5 * V + 9 * K + 1 + 1)
-            ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            rows.append({"lanes": N, "n_steps": steps, "ms": ms,
-                         "gflop": flops / 1e9, "bytes": nbytes,
-                         "bound_ms": max(ops_ms, bytes_ms),
-                         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                         "flop_rate_tflops": flops / ms / 1e9})
+        rows = self._mega_rows(shapes)
+        reg_rows = self._mega_rows(phase_shapes(REG_PHASES, REG_FRACTIONS),
+                                   REG_TERMS)
         # plain version at phase 1's shape (the same Philox bits), once
         N, steps = shapes[0]
         mega, sp = self._mega(steps)
@@ -623,36 +794,13 @@ class Smoke:
                      noise_bytes=sum(t.numel() * 4 for t in noise.values()))
         del noise
         emit({"phase": "times", "megastep": rows, "plain_phase1_ms": plain_ms,
-              "rng_split": split, "gpu": smi_line()})
+              "rng_split": split, "megastep_regularized": reg_rows,
+              "gpu": smi_line()})
         r0 = rows[0]
         self.kernels["megastep"].update(
             ms=r0["ms"], plain_ms=plain_ms, bound_ms=r0["bound_ms"],
-            bound_by=r0["bound_by"])
+            bound_by=r0["bound_by"], regularized_ms=reg_rows[0]["ms"])
         self._species_times()
-        self._unported_bounds()
-
-    @staticmethod
-    def _unported_bounds():
-        """Bounds of the TPU kernels not ported yet, from their TPU cost
-        estimates (arithmetic only): the fullstep kernel for one step at
-        phase 1's lanes with noise tensors (bio2_fullstep.py:681-682,
-        :705-706; no fixed rows on PR2)."""
-        from bio_ik_tpu_torch.kernels.bio2_megastep import megastep_flops_per_lane
-        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
-
-        sp = SpeciesParams(V=7, K=1)
-        N = phase_shapes()[0][0]
-        flops = megastep_flops_per_lane(sp, 1) * N
-        nbytes = 4 * N * (sp.gens * sp.V * sp.C + sp.gens * sp.C
-                          + 4 * 2 * sp.V + 3 * sp.V)
-        ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-        emit({"phase": "times", "unported": [
-            {"name": "make_fullstep_kernel", "lanes": N, "V": sp.V,
-             "gflop": flops / 1e9, "bytes": nbytes,
-             "bound_ms": max(ops_ms, bytes_ms),
-             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"},
-            {"name": "vpu_peak_flops", "bound_ms": None,
-             "why": "a peak calibration: its work is its loop count"}]})
 
     def _species_times(self):
         """The species kernel at each species path's launch shape (CUDA
@@ -663,9 +811,10 @@ class Smoke:
             species_bytes_per_lane, species_flops_per_lane)
 
         rows = []
-        for urdf, B, _ in SPECIES_PATHS:
+        for urdf, B, terms in [(u, b, ()) for u, b, _ in SPECIES_PATHS] + [
+                (SPECIES_PATHS[0][0], B_SPECIES_SEC, REG_TERMS)]:
             N = B * SPECIES_ISLANDS * 2
-            kern, args = self._species_args(urdf, N)
+            kern, args = self._species_args(urdf, N, sec_terms=terms)
             run = lambda: kern(*args)  # noqa: E731
             run()
             torch.cuda.synchronize()
@@ -674,9 +823,10 @@ class Smoke:
             torch.cuda.synchronize()
             plain_ms = cuda_ms(lambda: kern.inner(*args), 1)
             flops = species_flops_per_lane(kern.sp) * N
-            nbytes = species_bytes_per_lane(kern.sp) * N
+            nbytes = species_bytes_per_lane(kern.sp, terms) * N
             ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            rows.append({"robot": urdf, "lanes": N, "V": kern.sp.V, "ms": ms,
+            rows.append({"robot": urdf, "sec_terms": terms, "lanes": N,
+                         "V": kern.sp.V, "ms": ms,
                          "plain_ms": plain_ms, "gflop": flops / 1e9,
                          "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
                          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -686,13 +836,230 @@ class Smoke:
         r0 = rows[0]
         self.kernels["species"].update(
             ms=r0["ms"], plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
-            bound_by=r0["bound_by"])
+            bound_by=r0["bound_by"], regularized_ms=rows[-1]["ms"])
 
+
+    # ------------------------------------------------------------ sec --
+    def sec_check(self):
+        """The secondary-goal instances against their plain versions: the
+        megastep at the regularized path's phase-1 lanes (two steps) in
+        noise-tensor and in-kernel Philox mode (keep draw included), with
+        the regularized path's terms and with all four; the species kernel
+        with the same terms at species path (b)'s launch shape, bitwise.
+
+        With the regularized path's terms also the floor between two correct
+        versions (the plain version on the CPU against itself on the card,
+        on the same lanes and inputs) and two controls, wrong versions that
+        the comparison must fail: the plain version without the
+        pre-selection (every keep uniform 1, so all C children are kept),
+        and without the secondary terms in the memetic search (keep 1 on
+        both sides, the plain version's secondary coefficients 0)."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw, philox_draw
+        from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
+
+        def agree_frac(a, b):
+            return float(lane_agreement(a, b).float().mean())
+
+        N = phase_shapes(REG_PHASES, REG_FRACTIONS)[0][0]
+        out = {"phase": "sec_check", "lanes": N}
+        fracs, errs, controls = [], [], []
+        for terms in (REG_TERMS, ALL_TERMS):
+            mega, sp = self._mega(2, sec_terms=terms)
+            state, consts, noise = self._inputs(sp, 2, N, sec_terms=terms)
+
+            def kernel(keep):
+                return mega(state, consts, noise=noise[0], rates=noise[1],
+                            wipe_u=noise[2], wipe_g=noise[3], keep=keep)
+
+            def plain(body, st, cs, nz, keep):
+                return body(st, cs, array_draw(*nz[:4], sp.gens, keep=keep))
+
+            k_out = kernel(noise[4])
+            p_out = plain(mega.body, state, consts, noise, noise[4])
+            torch.cuda.synchronize()
+            agree = lane_agreement(k_out, p_out)
+            frac = float(agree.float().mean())
+            err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
+            row = {"noise_tensor_agree_frac": frac}
+            if terms == REG_TERMS:
+                cpu_mega, _ = self._mega(2, sec_terms=terms, model=self.cpu_model)
+                cs, cc, cn = [tuple(t.cpu() for t in x) for x in (state, consts, noise)]
+                row["plain_cpu_vs_card_agree_frac"] = agree_frac(
+                    plain(cpu_mega.body, cs, cc, cn, cn[4]), p_out)
+                del cs, cc, cn
+                ones = torch.ones_like(noise[4])
+                row["control_no_preselection_agree_frac"] = agree_frac(
+                    k_out, plain(mega.body, state, consts, noise, ones))
+                coef0 = consts[-1].clone()
+                coef0[:4 * sp.V] = 0.0
+                row["control_no_sec_in_memetic_agree_frac"] = agree_frac(
+                    kernel(ones), plain(mega.body, state, consts[:-1] + (coef0,),
+                                        noise, ones))
+                controls += [row["control_no_preselection_agree_frac"],
+                             row["control_no_sec_in_memetic_agree_frac"]]
+                del ones, coef0
+            del noise, k_out, p_out
+            state, consts, _ = self._inputs(sp, 2, N, with_noise=False,
+                                            sec_terms=terms)
+            salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+            k1 = mega(state, consts, seed=4321, salt=salt)
+            p1 = mega.body(state, consts,
+                           philox_draw(4321, salt, sp.V, sp.C, keep=True))
+            torch.cuda.synchronize()
+            frac_p = agree_frac(k1, p1)
+            row.update(philox_agree_frac=frac_p, agree_max_abs_err=err)
+            out["megastep_" + "_".join(terms)] = row
+            fracs += [frac, frac_p]
+            errs.append(err)
+        # the species kernel with the secondary terms, bitwise
+        Ns = B_SPECIES_SEC * SPECIES_ISLANDS * 2
+        bitwise = []
+        for terms in (REG_TERMS, ALL_TERMS):
+            kern, args = self._species_args("free_arm.urdf", Ns, sec_terms=terms)
+            k_out = kern(*args)
+            p_out = kern.inner(*args)
+            torch.cuda.synchronize()
+            bw = float(torch.stack([(a == b).reshape(-1, Ns).all(0)
+                                    for a, b in zip(k_out, p_out)]).all(0)
+                       .float().mean())
+            out["species_" + "_".join(terms)] = {"lanes": Ns, "bitwise_frac": bw}
+            bitwise.append(bw)
+            del args, k_out, p_out
+        emit(out)
+        self.kernels["megastep"]["sec_agree_frac"] = min(fracs)
+        self.kernels["species"]["sec_bitwise_frac"] = min(bitwise)
+        if min(fracs) < 0.85:
+            raise AssertionError(f"secondary megastep agrees on {min(fracs):.3f} "
+                                 "of lanes (< 0.85)")
+        if max(controls) >= 0.85:
+            raise AssertionError(f"a wrong secondary branch agrees on {max(controls):.3f}"
+                                 " of lanes: the 0.85 limit cannot tell it apart")
+        if min(bitwise) < 1.0:
+            raise AssertionError("the species kernel with secondary terms is "
+                                 f"bitwise equal on only {min(bitwise)} of lanes")
+
+    # ------------------------------------------------------- fullstep --
+    def fullstep_check(self):
+        """The fullstep kernel (one bio2 step, no bookkeeping) against the
+        plain make_fullstep_inner at phase 1's 131 072 lanes in both RNG
+        modes, and its time beside its bound."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_fullstep import array_draw_gen
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (
+            Fullstep, fullstep_bytes_per_lane, megastep_flops_per_lane,
+            philox_draw)
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
+        from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
+
+        N = phase_shapes()[0][0]
+        sp = SpeciesParams(V=7, K=1)
+        fs = Fullstep(self.model, [TIP], list(range(7)), [0], sp)
+        state, consts, noise = self._inputs(sp, 1, N, seed=13)
+        args = (state[0], state[1]) + tuple(consts[:8])
+        salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+
+        def noise_run():
+            return fs(*args, noise=noise[0], rates=noise[1])
+
+        def philox_run():
+            return fs(*args, seed=77, salt=salt)
+
+        def plain_noise():
+            return fs.inner(*args, array_draw_gen(noise[0], noise[1]))
+
+        k_out, p_out = noise_run(), plain_noise()
+        k2 = philox_run()
+        p2 = fs.inner(*args, philox_draw(77, salt, sp.V, sp.C)(0)[0])
+        torch.cuda.synchronize()
+        agree = lane_agreement(k_out, p_out)
+        frac = float(agree.float().mean())
+        frac_p = float(lane_agreement(k2, p2).float().mean())
+        err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
+        # the kernel driven on its own (no comparison): counted launches
+        torch.cuda.synchronize()
+        Fullstep.launches = 0
+        ms = cuda_ms(noise_run, 10)
+        ms_p = cuda_ms(philox_run, 10)
+        launches = Fullstep.launches
+        plain_ms = cuda_ms(plain_noise, 1)
+        flops = megastep_flops_per_lane(sp, 1) * N
+        nbytes = fullstep_bytes_per_lane(sp, 0) * N
+        nbytes_p = nbytes - 4 * N * (sp.gens * sp.V * sp.C + sp.gens * sp.C)
+        ops_ms = flops / PEAK_FP32 * 1e3
+        bound = max(ops_ms, nbytes / PEAK_BYTES * 1e3)
+        bound_p = max(ops_ms, nbytes_p / PEAK_BYTES * 1e3)
+        out = {"phase": "fullstep_check", "lanes": N,
+               "noise_tensor_agree_frac": frac, "philox_agree_frac": frac_p,
+               "agree_max_abs_err": err, "launches_timed": launches,
+               "noise_tensor_ms": ms, "philox_ms": ms_p, "plain_ms": plain_ms,
+               "flop_per_lane": megastep_flops_per_lane(sp, 1),
+               "noise_tensor_bytes": nbytes, "noise_tensor_bound_ms": bound,
+               "noise_tensor_bound_by": "bytes" if bound > ops_ms else "operations",
+               "philox_bytes": nbytes_p, "philox_bound_ms": bound_p,
+               "philox_bound_by": "bytes" if bound_p > ops_ms else "operations",
+               "gpu": smi_line()}
+        emit(out)
+        self.kernels["fullstep"].update(
+            launches=launches, agree_frac=min(frac, frac_p), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=out["noise_tensor_bound_by"], philox_ms=ms_p,
+            philox_bound_ms=bound_p)
+        if min(frac, frac_p) < 0.85:
+            raise AssertionError(f"fullstep kernel agrees on {frac:.3f} / "
+                                 f"{frac_p:.3f} of lanes (< 0.85)")
+
+    # ------------------------------------------------------------ mfu --
+    def mfu(self):
+        """Path (d): ``python -m bio_ik_tpu_torch.tools.bench_mfu``'s
+        measurements; then the peak kernel bitwise against its plain version
+        on bench_mfu's own input, (256, 8192) into a (256, 512) tile, at both
+        of its iteration counts — there only the last column block's threads
+        store, the rule a one-block tile never tests — and at T = 64 on a
+        one-block (256, 512) tile."""
+        import numpy as np
+        import torch
+        from bio_ik_tpu_torch.kernels.peak import (PeakChains, peak_chains_plain,
+                                                   peak_flops)
+        from bio_ik_tpu_torch.tools import bench_mfu
+
+        PeakChains.launches = 0
+        res = bench_mfu.run()
+        launches = PeakChains.launches
+        R, W, G_ = bench_mfu.PEAK_R, bench_mfu.PEAK_W, bench_mfu.PEAK_G
+        T = bench_mfu.PEAK_T[0]
+        xs = torch.as_tensor(np.random.default_rng(0).uniform(
+            0.2, 0.8, size=(R, W * G_)).astype(np.float32), device=self.dev)
+        peak_chains_plain(xs, 4, W)
+        plain_ms = cuda_ms(lambda: peak_chains_plain(xs, T, W), 1)
+        bound = peak_flops(R, W * G_, T) / PEAK_FP32 * 1e3
+        bitwise, errs = {}, []
+        for t in bench_mfu.PEAK_T:
+            k, p = PeakChains()(xs, t, W), peak_chains_plain(xs, t, W)
+            bitwise[f"{R}x{W * G_}_T{t}"] = bool(torch.equal(k, p))
+            errs.append(float((k - p).abs().max()))
+        x = torch.as_tensor(np.random.default_rng(1).uniform(
+            0.2, 0.8, size=(256, 512)).astype(np.float32), device=self.dev)
+        bitwise["256x512_T64"] = bool(torch.equal(PeakChains()(x, 64, 512),
+                                                  peak_chains_plain(x, 64, 512)))
+        emit({"phase": "mfu", **res, "peak_bitwise": bitwise,
+              "peak_max_abs_err": max(errs), "peak_launches": launches,
+              "peak_plain_ms_T1024": plain_ms, "peak_bound_ms_T1024": bound})
+        ms = res["peak_ms_by_iterations"][str(T)]
+        ok = all(bitwise.values())
+        self.kernels["peak"].update(
+            launches=launches, max_abs_err=max(errs), agree_frac=1.0 if ok else 0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations")
+        if not ok:
+            raise AssertionError(f"the peak kernel differs from its plain version: {bitwise}")
+        if not (res["vpu_fma_peak_tflops"] > 0 and res["kernel_chunk_ms"] > 0):
+            raise AssertionError(f"bench_mfu measured nothing: {res}")
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="build,check,rng,main,species_check,"
-                    "species_main,times,profile",
+    ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
+                    "main,regularized_main,species_check,species_main,"
+                    "species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
@@ -709,18 +1076,22 @@ def main():
     smoke = Smoke()
     phases = args.only.split(",")
     for name in phases:
+        t0 = time.perf_counter()
         getattr(smoke, name)()
+        emit({"phase_seconds": {name: time.perf_counter() - t0}})
     k = smoke.kernels
     emit({"kernels": [dict(
-        name=name, route="cuda", source=f"bio_ik_tpu_torch/csrc/{name}.cu",
+        name=name, route="cuda", source=f"bio_ik_tpu_torch/csrc/{src}.cu",
         replaces=replaces, launches=k[name].get("launches"),
-        max_abs_err=k[name].get("max_abs_err"),
-        agree_frac=k[name].get("agree_frac"), ms=k[name].get("ms"),
+        max_abs_err=k[name].get("max_abs_err"), ms=k[name].get("ms"),
         plain_ms=k[name].get("plain_ms"), bound_ms=k[name].get("bound_ms"),
-        bound_by=k[name].get("bound_by"), library_ms=None)
-        for name, replaces in (
-            ("megastep", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
-            ("species", "bio_ik_tpu/kernels/bio2_step.py:461"))]})
+        bound_by=k[name].get("bound_by"), library_ms=None,
+        **{x: v for x, v in k[name].items() if x not in KERNEL_KEYS})
+        for name, src, replaces in (
+            ("megastep", "megastep", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
+            ("species", "species", "bio_ik_tpu/kernels/bio2_step.py:461"),
+            ("fullstep", "megastep", "bio_ik_tpu/kernels/bio2_fullstep.py:692"),
+            ("peak", "peak", "tools/bench_mfu.py:85"))]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,9 @@ from bio_ik_tpu_torch.kinematics import (apply_deltas, apply_deltas_single,
 from bio_ik_tpu_torch.math.quat import quat_conj, quat_mul, quat_to_rotvec_wrapped
 from bio_ik_tpu_torch.solvers.bio2 import quat_gene_slices
 
+# small tensors: one intra-op thread per test worker (the suite runs six)
+torch.set_num_threads(1)
+
 FD_ROBOTS = ("free_arm.urdf", "planar_arm.urdf")
 
 

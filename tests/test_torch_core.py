@@ -26,6 +26,9 @@ from bio_ik_tpu_torch import IKSolver, RobotModel, SolverConfig, make_fk
 from bio_ik_tpu_torch.engine import _scenario_salt
 from bio_ik_tpu_torch.problem import Problem
 
+# small tensors: one intra-op thread per test worker (the suite runs six)
+torch.set_num_threads(1)
+
 ASSETS = ["free_arm.urdf", "humanoid.urdf", "kuka_iiwa.urdf", "planar_arm.urdf",
           "pr2_arm.urdf", "pr2_dual.urdf", "snake.urdf", "ur5.urdf"]
 TIP = "r_gripper_tool_frame"

@@ -28,6 +28,9 @@ from bio_ik_tpu_torch import (AdaptiveBatchSolver, IKResult, IKSolver,
                               RobotModel, SolverConfig, make_fk)
 from bio_ik_tpu_torch.interop import tree_from_numpy, tree_map, tree_to_numpy
 
+# small tensors: one intra-op thread per test worker (the suite runs six)
+torch.set_num_threads(1)
+
 TIP = "r_gripper_tool_frame"
 B = 8
 
@@ -52,9 +55,11 @@ def _batch(jsolver, jm, targets_q):
     return data
 
 
-def _solvers(arms, islands=2):
+@pytest.fixture(scope="module")
+def solvers(arms):
+    """The JAX and the port's fused solvers of one PoseGoal, two islands."""
     jm, tm = arms
-    cfg = dict(mode="bio2_memetic", dtwist=1e-3, islands=islands, max_steps=4,
+    cfg = dict(mode="bio2_memetic", dtwist=1e-3, islands=2, max_steps=4,
                steps_per_check=4)
     js = JIKSolver(jm, [JG.PoseGoal(link=TIP)], JSolverConfig(fused="auto", **cfg))
     ts = IKSolver(tm, [G.PoseGoal(link=TIP)], SolverConfig(**cfg))
@@ -62,13 +67,13 @@ def _solvers(arms, islands=2):
     return js, ts
 
 
-def test_mega_prep_matches_jax(arms, rng):
+def test_mega_prep_matches_jax(arms, solvers, rng):
     jm, tm = arms
-    js, ts = _solvers(arms)
+    js, ts = solvers
     q = rng.uniform(tm._np_bounds["min"], tm._np_bounds["max"], (B, 7)).astype(np.float32)
     jdata = _batch(js, jm, q)
     jkeys = jax.random.split(jax.random.PRNGKey(3), B)
-    jstate, jconsts, jsalt, jbest = _np(js.engine._mega_prep(jkeys, jdata))
+    jstate, jconsts, jsalt, jbest = _np(jax.jit(js.engine._mega_prep)(jkeys, jdata))
     tstate, tconsts, tsalt, tbest = tree_to_numpy(ts.engine._mega_prep(
         tree_from_numpy(_np(jkeys)), tree_from_numpy(_np(jdata))))
     M = B * 2 * 2
@@ -108,9 +113,9 @@ def test_goal_rows_match_jax(rng):
         np.testing.assert_array_equal(a, b)
 
 
-def test_eval_lanes_and_merge_match_jax(arms, rng):
+def test_eval_lanes_and_merge_match_jax(arms, solvers, rng):
     jm, tm = arms
-    js, ts = _solvers(arms)
+    js, ts = solvers
     qstar = rng.uniform(tm._np_bounds["min"], tm._np_bounds["max"], (B, 7)).astype(np.float32)
     jdata = _batch(js, jm, qstar)
     L, M = 4, B * 4
@@ -123,7 +128,7 @@ def test_eval_lanes_and_merge_match_jax(arms, rng):
     sol_tips = np.concatenate([np.asarray(tips.pos), np.asarray(tips.quat)], -1)[:, 0]
     sol_fit = rng.uniform(0, 1e-3, size=(1, M)).astype(np.float32)
     args = (sol.T.copy(), sol_fit, sol_tips.T.copy())
-    jres = _np(js.engine._eval_lanes(*[jnp.asarray(a) for a in args], jdata))
+    jres = _np(jax.jit(js.engine._eval_lanes)(*[jnp.asarray(a) for a in args], jdata))
     tres = tree_to_numpy(ts.engine._eval_lanes(*tree_from_numpy(args),
                                                tree_from_numpy(_np(jdata))))
     assert 0 < jres[2].sum() < B

@@ -48,6 +48,9 @@ from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
 from bio_ik_tpu_torch.kernels.checks import lane_agreement, megastep_inputs
 from bio_ik_tpu_torch.kernels.fk_rows import FkRows
 
+# small tensors: one intra-op thread per test worker (the suite runs six)
+torch.set_num_threads(1)
+
 TIP = "r_gripper_tool_frame"
 V = 7
 N = 256

@@ -42,6 +42,9 @@ from bio_ik_tpu_torch.kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel,
 from bio_ik_tpu_torch.kernels.build import CSRC
 from bio_ik_tpu_torch.kernels.checks import lane_agreement, species_inputs
 
+# small tensors: one intra-op thread per test worker (the suite runs six)
+torch.set_num_threads(1)
+
 CFG = dict(mode="bio2_memetic", dpos=5e-3, dtwist=float("inf"), max_steps=16)
 
 
