@@ -15,9 +15,10 @@
 // mid, hspan, seed):
 //   sec(x) = Σ_v α(x−mid)² + β(x−seed)² + δ(x−tbar)² + γ·relu(2|x−mid|−hspan)²
 // `mask` holds bit i for the i-th of alpha, beta, gamma, delta
-// (bio2_step.sec_term_mask); the rows are read from global memory where
-// they are used (one coalesced load each, lanes contiguous), not held in
-// registers.
+// (bio2_step.sec_term_mask).  `S(r, v)` reads row r·V + v of the lane:
+// SecRows from global memory where it is used (one coalesced load each,
+// lanes contiguous; csrc/species.cu), or a copy in shared memory
+// (csrc/megastep.cu).
 
 #pragma once
 
@@ -35,8 +36,8 @@ struct SecRows {
 };
 
 // Σ_v of the terms in `mask`: per variable alpha, beta, delta, then gamma.
-template <int V>
-__device__ __forceinline__ float sec_of(const SecRows& S, unsigned mask,
+template <int V, typename Rows>
+__device__ __forceinline__ float sec_of(const Rows& S, unsigned mask,
                                         const float (&x)[V]) {
   float acc = 0.0f;
 #pragma unroll
@@ -60,8 +61,8 @@ __device__ __forceinline__ float sec_of(const SecRows& S, unsigned mask,
 }
 
 // ∂sec/∂x_v.
-template <int V>
-__device__ __forceinline__ float sec_grad(const SecRows& S, unsigned mask,
+template <int V, typename Rows>
+__device__ __forceinline__ float sec_grad(const Rows& S, unsigned mask,
                                           const float (&x)[V], int v) {
   const float xm = __fsub_rn(x[v], S(SEC_MID, v));
   float g = 0.0f;

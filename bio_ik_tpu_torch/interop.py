@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["tree_map", "tree_from_numpy", "tree_to_numpy"]
 
 
@@ -37,9 +39,12 @@ def _to_tensor(x, device):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
-def tree_from_numpy(tree, device="cpu"):
-    """numpy leaves → tensors on ``device`` (uint32 → int64)."""
-    return tree_map(lambda x: _to_tensor(x, device), tree)
+def tree_from_numpy(tree, device=None):
+    """numpy leaves → tensors on ``device`` (uint32 → int64): the card unless
+    the caller asks for the CPU, as every entry point
+    (:func:`~bio_ik_tpu_torch.device.resolve_device`)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_tensor(x, dev), tree)
 
 
 def tree_to_numpy(tree):

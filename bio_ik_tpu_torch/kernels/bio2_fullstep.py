@@ -13,7 +13,12 @@ Randomness.  The TPU kernel drew from the core's hardware PRNG; the port
 uses counter-based Philox4x32-10, written once here in int64 torch
 arithmetic and once in the CUDA kernel, so both produce the same bits for
 the same (seed, lane, step, generation, draw) counter.  As in the
-reference, each lane's salt is XORed into every raw 32-bit word.
+reference, each lane's salt is XORed into every raw 32-bit word.  How the
+megastep maps words to draws is ``bio2_megastep.philox_draw``: its CLT4
+Gaussians come from :func:`packed_fields` and :func:`clt4_from_fields`,
+its rates from
+:func:`rates_from_words`; the species tier's draws (``engine``) keep
+:func:`gauss_from_u01` and :func:`rate_from_bits` word by word.
 
 With joint-space secondary goals (``sec_terms``) the step ranks each
 generation's children by secondary fitness and keeps a random-count best
@@ -34,6 +39,7 @@ from .fk_rows import FkRows
 
 __all__ = ["make_fullstep_inner", "array_draw_gen", "gauss_from_u01",
            "philox4x32", "philox_words", "u01_from_bits", "rate_from_bits",
+           "packed_fields", "clt4_from_fields", "rates_from_words",
            "GAUSS_MODES", "POSE_KINDS"]
 
 GAUSS_MODES = ("clt4", "box_muller")
@@ -92,6 +98,41 @@ def rate_from_bits(bits):
     """Mutation-rate ladder 2^(k−23), k = bits & 15, built from exponent
     bits (reference: mutation_rate, ik_evolution_2.cpp:265)."""
     return (((bits & 15) + 104) << 23).to(torch.int32).view(torch.float32)
+
+
+def packed_fields(words, n: int):
+    """The first ``n`` 24-bit fields of a word sequence (int64 tensors of
+    32-bit values) read as one little-endian bit string: four fields to
+    three words, field ``f`` at bit ``24·f`` (the CUDA kernel's field24)."""
+    out = []
+    for f in range(n):
+        i, o = divmod(24 * f, 32)
+        x = words[i] >> o
+        if o > 8:
+            x = x | (words[i + 1] << (32 - o))
+        out.append(x & 0xFFFFFF)
+    return out
+
+
+def clt4_from_fields(fields):
+    """Irwin–Hall Gaussians ``(Σ₄ u − 2)·√3`` from four 24-bit fields
+    (int64 tensors), as the CUDA megastep draws them: the fields summed
+    exactly in integers (< 2²⁶), one conversion to float32, one scale.
+    Within 2⁻²² of :func:`gauss_from_u01`'s float sum of the same four
+    uniforms ``field·2⁻²⁴`` (that sum rounds up to three times)."""
+    return (sum(fields).to(torch.float32) * _INV24 - 2.0) * _SQRT3
+
+
+def rates_from_words(words, C: int):
+    """The C mutation rates of a generation from one Philox call: rate c is
+    :func:`rate_from_bits` of the 4-bit field c — word ``c // 8``, bits
+    ``4·(c % 8)`` — of the call's words ``(x, y, z)``; ``(C, N)`` from
+    ``(1, N)`` words, C ≤ 24."""
+    if C > 24:
+        raise ValueError(f"{C} rates exceed the 24 fields of one call")
+    w = torch.cat(list(words[:3]), 0)                         # (3, N)
+    c = torch.arange(C, device=w.device)
+    return rate_from_bits(w[c // 8] >> (4 * (c % 8))[:, None])
 
 
 def gauss_from_u01(u, gauss_mode="clt4"):

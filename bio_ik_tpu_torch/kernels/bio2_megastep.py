@@ -21,6 +21,10 @@ Two randomness modes, in both versions:
   * in-kernel Philox (seed + per-lane salt), the mode of the solve.  The
     plain version draws the identical bits (:func:`philox_draw`).
 
+On the card a lane's children are split over a group of G threads
+(:func:`choose_group`, from the lane count and the kernel's occupancy); the
+draws, and so the results, do not depend on G.
+
 With joint-space secondary goals (``sec_terms``) the consts end with the
 packed ``sec (8V, N)`` rows and each generation draws one more uniform, the
 pre-selection keep (``keep (steps·gens, 1, N)`` in noise-tensor mode).
@@ -40,10 +44,12 @@ import torch
 from .bio2_fullstep import (
     GAUSS_MODES,
     array_draw_gen,
+    clt4_from_fields,
     gauss_from_u01,
     make_fullstep_inner,
+    packed_fields,
     philox_words,
-    rate_from_bits,
+    rates_from_words,
     u01_from_bits,
 )
 from .bio2_step import SpeciesParams, _P, sec_term_mask
@@ -51,10 +57,20 @@ from .fk_rows import FkRows
 
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "Megastep",
            "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
-           "MEGASTEP_SHAPES"]
+           "philox_calls_per_lane_step", "clt4_calls", "choose_group",
+           "MEGASTEP_SHAPES",
+           "GROUPS"]
 
-# (V, K, T) instances of csrc/megastep.cu (its SHAPES macro)
+# (V, K, T) instances of csrc/megastep.cu (its SHAPES macro), each for
+# every group size G of GROUPS (its GROUPS macro)
 MEGASTEP_SHAPES = ((7, 1, 1), (6, 1, 1))
+GROUPS = (1, 2, 4, 8)
+_BLOCK = 128          # threads per block (csrc/megastep.cu BLOCK)
+_MAX_C = 16           # children per generation the kernel takes (MAX_C)
+# share of a G = 1 lane-step that every thread of a group repeats (the FK,
+# the memetic search, the bookkeeping): 0.26 from the pose-only kernel's
+# phase-1 times at G = 1 and 2 on an H100 (PERF.md §6)
+_REPEATED = 0.26
 
 _WIPEOUT_P = 0.1  # reference: ik_evolution_2.cpp:632
 _WIPE_GEN = 0xFFFFFFFF  # Philox generation word of a step's wipeout draws
@@ -69,6 +85,36 @@ def megastep_flops_per_lane(sp: SpeciesParams, n_steps: int) -> int:
     selection."""
     evals = sp.gens * (sp.C + _P) + (sp.mem_iters * 4 if sp.memetic else 0)
     return n_steps * (evals * (sp.K * 7 * sp.V * 2 + sp.K * 30) + 900)
+
+
+def clt4_calls(V: int) -> int:
+    """Philox calls of a child's V CLT4 Gaussians: 4V 24-bit fields, four to
+    three words — ceil(3V/4)."""
+    return (3 * V + 3) // 4
+
+
+def philox_calls_per_lane_step(sp: SpeciesParams) -> int:
+    """Philox4x32-10 calls of one lane-step in the kernel's clt4 mode:
+    ceil(3V/4) per child, one for a generation's rates (and keep),
+    ceil((V+1)/4) for the wipeout — 778 at V = 7, C = 16, gens = 8."""
+    return sp.gens * (sp.C * clt4_calls(sp.V) + 1) + (sp.V + 4) // 4
+
+
+def choose_group(N: int, resident, C: int = _MAX_C) -> int:
+    """The group size G of a launch on ``N`` lanes: the G (dividing C) of
+    least estimated time ``waves(G)·((1 − r)/G + r)``, with ``waves(G)`` the
+    rounds of ``resident[G]`` blocks (blocks per SM · SMs) its ``N·G``
+    threads need and ``r`` the repeated share of a lane-step; ties to the
+    smaller G."""
+    best = None
+    for g in GROUPS:
+        if C % g:
+            continue
+        blocks = -(-N * g // _BLOCK)
+        est = -(-blocks // resident[g]) * ((1 - _REPEATED) / g + _REPEATED)
+        if best is None or est < best[0] - 1e-9:
+            best = (est, g)
+    return best[1]
 
 
 def fullstep_bytes_per_lane(sp: SpeciesParams, F: int) -> int:
@@ -158,43 +204,65 @@ def array_draw(noise, rates, wipe_u, wipe_g, gens: int, keep=None):
 def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
                 keep: bool = False):
     """``draw(i)`` from the Philox stream the CUDA kernel draws in-kernel:
-    counter ``(lane, step i, generation g, draw)`` under key ``(seed, 0)``;
-    gaussian (v, c) is draw ``v·C + c`` (its four words feed clt4, the
-    first two Box–Muller), rate c is draw ``V·C + c``, and with ``keep``
-    (secondary goals) the pre-selection uniform is draw ``V·C + C``; the
-    wipe coin and restart genes are draws ``0`` and ``1 + v`` of generation
-    word ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt."""
+    counter ``(lane, step i, generation g, draw)`` under key ``(seed, 0)``,
+    the lane's salt XORed into every word.  Child c's clt4 Gaussians come
+    from draws ``c·NC … c·NC + NC − 1`` (``NC = ceil(3V/4)``): their words
+    in order are one bit string of 24-bit fields (:func:`packed_fields`),
+    Gaussian v the integer sum of fields ``4v … 4v + 3``
+    (:func:`clt4_from_fields`).  Box–Muller Gaussian (v, c) is draw
+    ``v·C + c``, from its first two words.  The C rates
+    are the 4-bit fields of draw ``V·C`` (:func:`rates_from_words`), and
+    with ``keep`` (secondary goals) that draw's last word is the
+    pre-selection uniform; the wipe coin and restart genes are words 0 and
+    ``1 + v`` of draws 0, 1, … (four words each) of generation word
+    ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt."""
     if gauss_mode not in GAUSS_MODES:
         raise ValueError(f"gauss_mode must be one of {GAUSS_MODES}")
+    if C > _MAX_C:
+        raise ValueError(f"{C} children exceed the kernel's {_MAX_C}")
     dev = salt.device
     salt64 = salt.to(torch.int64) & 0xFFFFFFFF
     N = salt.shape[-1]
     lane = torch.arange(N, device=dev, dtype=torch.int64)[None, :]
-    gidx = torch.arange(V * C, device=dev, dtype=torch.int64)[:, None]
-    ridx = torch.arange(C, device=dev, dtype=torch.int64)[:, None] + V * C
-    widx = torch.arange(1 + V, device=dev, dtype=torch.int64)[:, None]
-    kidx = torch.full((1, 1), V * C + C, device=dev, dtype=torch.int64)
+    NC = clt4_calls(V)
+    gidx = torch.arange(C * NC if gauss_mode == "clt4" else V * C, device=dev,
+                        dtype=torch.int64)[:, None]
+    ridx = torch.full((1, 1), V * C, device=dev, dtype=torch.int64)
+    widx = torch.arange((V + 4) // 4, device=dev, dtype=torch.int64)[:, None]
 
     def draw(i):
         def draw_gen(g):
             w = philox_words(seed, lane, i, g, gidx, salt64)
-            if gauss_mode == "clt4":
-                u = [u01_from_bits(x) for x in w]
+            if gauss_mode == "clt4":       # child c's words: (c, 4·NC, N)
+                cw = torch.stack(w, 1).reshape(C, 4 * NC, N).unbind(1)
+                f = packed_fields(cw, 4 * V)
+                noise = torch.stack([clt4_from_fields(f[4 * v:4 * v + 4])
+                                     for v in range(V)])
             else:
-                u = [u01_from_bits(w[0], lo=2.0 ** -25), u01_from_bits(w[1])]
-            noise = gauss_from_u01(u, gauss_mode).view(V, C, N)
-            rates = rate_from_bits(
-                philox_words(seed, lane, i, g, ridx, salt64)[0])
+                noise = gauss_from_u01([u01_from_bits(w[0], lo=2.0 ** -25),
+                                        u01_from_bits(w[1])], gauss_mode)
+            rw = philox_words(seed, lane, i, g, ridx, salt64)
+            rates = rates_from_words(rw, C)
             if keep:
-                k = u01_from_bits(philox_words(seed, lane, i, g, kidx,
-                                               salt64)[0])
-                return noise, rates, k
-            return noise, rates
+                return noise.view(V, C, N), rates, u01_from_bits(rw[3])
+            return noise.view(V, C, N), rates
 
-        w = u01_from_bits(philox_words(seed, lane, i, _WIPE_GEN, widx, salt64)[0])
-        return draw_gen, w[0:1], w[1:]
+        ww = torch.stack(philox_words(seed, lane, i, _WIPE_GEN, widx, salt64), 1)
+        u = u01_from_bits(ww.reshape(-1, N)[:1 + V])   # word k = call k//4, word k%4
+        return draw_gen, u[0:1], u[1:]
 
     return draw
+
+
+def _branch_slots(link_i):
+    """Per link, its slot among the frames the kernel keeps in shared
+    memory — the links that a later link hangs from other than the next
+    one (which reads the running frame) — or -1."""
+    keep = np.zeros(len(link_i), bool)
+    for s, (par, _, kind, _, _, pre) in enumerate(link_i):
+        if par >= 0 and par != s - 1 and kind != 3 and not pre:   # SRC_CONST
+            keep[par] = True
+    return np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
 
 
 def _ptr(t):
@@ -223,9 +291,12 @@ class _StepKernel:
         self.T = len(tip_links)
         link_i, link_f, tip_slot = FkRows(
             model, tip_links, active_vars).chain_arrays()
-        self._chain = (link_i, link_f, tip_slot,
-                       np.asarray(inst_tip, np.int32))
+        branch = _branch_slots(link_i)
+        self.nbranch = int((branch >= 0).sum())
+        self._chain = (np.concatenate([link_i, branch[:, None]], 1), link_f,
+                       tip_slot, np.asarray(inst_tip, np.int32))
         self._chain_dev = {}
+        self._groups = {}
 
     def _lib(self, N):
         from .build import load
@@ -234,6 +305,8 @@ class _StepKernel:
         sp = self.sp
         if N % 2:
             raise ValueError(f"lane count {N} must be even (species pairs)")
+        if sp.C > _MAX_C:
+            raise ValueError(f"{sp.C} children exceed the kernel's {_MAX_C}")
         lib.megastep_has_shape.argtypes = [ctypes.c_int] * 3
         lib.megastep_has_shape.restype = ctypes.c_int
         if not lib.megastep_has_shape(sp.V, sp.K, self.T):
@@ -242,6 +315,35 @@ class _StepKernel:
                 f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu; "
                 "ROADMAP.md, port queue item 9)")
         return lib
+
+    def smem_bytes(self, lib, G: int) -> int:
+        """Dynamic shared memory of one block of the instance at group G."""
+        fn = lib.megastep_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_uint]
+        fn.restype = ctypes.c_int
+        return fn(self.sp.V, self._chain[0].shape[0], self.nbranch, self.sp.C,
+                  G, self.sec_mask)
+
+    def resident_blocks(self, lib, dev, G: int) -> int:
+        """Blocks of the instance at group G the card holds at once."""
+        fn = lib.megastep_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        rc = fn(self.sp.V, self.sp.K, self.T, int(bool(self.sec_mask)), G,
+                self.smem_bytes(lib, G), ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise RuntimeError(f"megastep G={G} does not fit on the card: "
+                               f"CUDA error {rc}, {blocks.value} blocks per SM")
+        return blocks.value * torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def group(self, lib, dev, N: int) -> int:
+        """The group size of a launch on N lanes (:func:`choose_group`)."""
+        if (dev, N) not in self._groups:
+            resident = {g: self.resident_blocks(lib, dev, g) for g in GROUPS
+                        if self.sp.C % g == 0}
+            self._groups[dev, N] = choose_group(N, resident, self.sp.C)
+        return self._groups[dev, N]
 
     def _chain_on(self, dev):
         if dev not in self._chain_dev:
@@ -276,10 +378,12 @@ class Megastep(_StepKernel):
             self.const_rows.append(8 * sp.V)
 
     def __call__(self, state, consts, *, seed=None, salt=None, noise=None,
-                 rates=None, wipe_u=None, wipe_g=None, keep=None):
+                 rates=None, wipe_u=None, wipe_g=None, keep=None, group=None):
         """Advance ``state`` by ``n_steps`` steps.  Either ``seed`` (int) and
         ``salt`` ((1, N) int32) for in-kernel Philox, or the noise tensors
-        (``keep`` too with secondary terms).  Returns the new state tuple."""
+        (``keep`` too with secondary terms).  ``group`` fixes the kernel's
+        group size G (default: :meth:`group`'s choice).  Returns the new
+        state tuple."""
         tensors = noise is not None
         if not tensors and (seed is None or salt is None):
             raise ValueError("pass seed and salt, or the noise tensors")
@@ -297,16 +401,20 @@ class Megastep(_StepKernel):
         if dev.type == "cuda":
             return self._launch(state, consts, seed, salt,
                                 (noise, rates, wipe_u, wipe_g, keep)
-                                if tensors else None)
+                                if tensors else None, group)
         raise ValueError(f"megastep runs on cuda or cpu tensors, not {dev}")
 
     # ------------------------------------------------------------------
-    def _launch(self, state, consts, seed, salt, rng):
+    def _launch(self, state, consts, seed, salt, rng, group):
         sp = self.sp
         genes = state[0]
         dev = genes.device
         N = genes.shape[-1]
         lib = self._lib(N)
+        G = self.group(lib, dev, N) if group is None else group
+        if G not in GROUPS or sp.C % G:
+            raise ValueError(f"group size {G} must be one of {GROUPS} and divide "
+                             f"C = {sp.C}")
         for t, r, nm in zip(state, self.state_rows,
                             ("genes", "grads", "sfit", "sol", "sol_fit",
                              "sol_tips")):
@@ -340,11 +448,11 @@ class Megastep(_StepKernel):
         out = tuple(torch.empty_like(t) for t in state)
         fn = lib.megastep_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
+        fn.argtypes = ([ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_uint, ctypes.c_uint]
                        + [ctypes.c_void_p] * 34)
-        rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], self.n_steps,
-                sp.gens, sp.C, sp.mem_iters, _MEMETIC_CODE[sp.memetic],
+        rc = fn(sp.V, sp.K, self.T, G, N, chain_i.shape[0], self.nbranch,
+                self.n_steps, sp.gens, sp.C, sp.mem_iters, _MEMETIC_CODE[sp.memetic],
                 sp.h, rng_mode, int(seed) & 0xFFFFFFFF, self.sec_mask,
                 _ptr(salt), *(_ptr(t) for t in state), *(_ptr(t) for t in out),
                 *(_ptr(t) for t in consts[:10]), _ptr(sec),
@@ -426,10 +534,10 @@ class Fullstep(_StepKernel):
         fit_o = torch.empty((1, N), dtype=torch.float32, device=dev)
         fn = lib.fullstep_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_uint]
+        fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_uint]
                        + [ctypes.c_void_p] * 22)
-        rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], sp.gens, sp.C,
+        rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], self.nbranch, sp.gens, sp.C,
                 sp.mem_iters, _MEMETIC_CODE[sp.memetic], sp.h, rng_mode,
                 int(seed) & 0xFFFFFFFF, _ptr(salt),
                 *(_ptr(t) for t in args), _ptr(noise), _ptr(rates),

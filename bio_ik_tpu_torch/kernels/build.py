@@ -21,12 +21,14 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from typing import Dict, Sequence
 
-__all__ = ["build", "build_all", "load", "ptxas_report", "BUILD_DIR", "CSRC"]
+__all__ = ["build", "build_all", "load", "ptxas_report", "ptxas_table",
+           "BUILD_DIR", "CSRC"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -116,3 +118,33 @@ def ptxas_report(name: str) -> str:
         return "".join(line for line in f
                        if "registers" in line or "spill" in line
                        or "Compiling entry" in line)
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_NUM = {"stack": re.compile(r"(\d+) bytes stack frame"),
+              "spill_stores": re.compile(r"(\d+) bytes spill stores"),
+              "spill_loads": re.compile(r"(\d+) bytes spill loads"),
+              "registers": re.compile(r"Used (\d+) registers")}
+
+
+def ptxas_table(name: str):
+    """One row per kernel of the last build's ``-Xptxas -v`` report:
+    ``{"entry", "registers", "stack", "spill_stores", "spill_loads"}``, the
+    entry demangled with the toolkit's ``cu++filt`` where it is found."""
+    rows = []
+    for line in ptxas_report(name).splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            rows.append({"entry": m.group(1)})
+            continue
+        for key, rx in _PTXAS_NUM.items():
+            m = rx.search(line)
+            if m and rows:
+                rows[-1][key] = int(m.group(1))
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r["entry"] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout
+        for r, dm in zip(rows, out.splitlines()):
+            r["entry"] = dm.strip()
+    return rows

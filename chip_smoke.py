@@ -14,15 +14,18 @@ non-zero:
 
   build           — card name and power limit, torch/CUDA versions, nvcc
                     build of every kernel source (megastep.cu, species.cu,
-                    peak.cu, in parallel) and their ptxas reports;
+                    peak.cu, in parallel), their ptxas reports and, per
+                    kernel instance, registers, stack and spill;
   check           — megastep vs plain version, noise-tensor mode, main-path
                     sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
                     steps, N=4096): ≥ 85 % of lanes agree, beside the plain
-                    version on the CPU vs the card; exact FK and fitness
-                    with no selection on all 131 072 lanes (atol 1e-5);
+                    version on the CPU vs the card; every group size G
+                    bitwise equal to G = 1; exact FK and fitness with no
+                    selection on all 131 072 lanes (atol 1e-5);
   rng             — in-kernel Philox vs the plain version's at each main-path
-                    launch's lane count (≥ 85 %), clt4 moments, rate bins,
-                    bitwise repeat, salt locality;
+                    launch's lane count (≥ 85 %), clt4 moments, rate bins
+                    (the 4-bit fields of a generation's rate call), bitwise
+                    repeat, salt locality;
   sec_check       — the secondary-goal megastep (the regularizers' terms,
                     and all four) at the regularized path's 131 072 lanes in
                     both RNG modes (≥ 85 %, beside the CPU-vs-card floor);
@@ -46,7 +49,12 @@ non-zero:
                     launches), unit quaternions, peak memory;
   species_sec_main — free_arm with the two regularizers at B = 16 384;
   times           — every kernel instance at its paths' launch shapes (CUDA
-                    events) beside its plain version and FLOP/byte bound;
+                    events; the megastep at the 8 ladder launches with the
+                    G chosen and every G) beside its plain version, its
+                    FLOP/byte bound and, for the megastep, the bound of the
+                    generator's integer work beside it (its Philox calls,
+                    one call's SASS counted, at the card's IMAD, ALU and
+                    issue rates);
   profile         — torch.profiler over one solve_batch of each path: device
                     time by kernel, device busy and idle share;
   mfu             — ``python -m bio_ik_tpu_torch.tools.bench_mfu``'s
@@ -61,6 +69,8 @@ result when there is no CUDA device or the package is missing.
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +89,14 @@ SPECIES_ISLANDS = 4
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# thread-instructions per SM and clock on sm_90 (CUDA C Programming Guide,
+# arithmetic instruction throughput; four schedulers of one warp each):
+# 32-bit integer multiply-add (IMAD, the FMA pipe), the other 32-bit
+# integer work (add, logic, shift, compare: the ALU pipe, beside it), and
+# the issue limit over all pipes
+IMAD_PER_SM_CLK = 64
+ALU_PER_SM_CLK = 64
+ISSUE_PER_SM_CLK = 128
 SOURCES = ("megastep", "species", "peak")
 # the reference's recommended configuration (tools/bench_suite.py:198-210):
 # PoseGoal + MinimalDisplacementGoal(0.05) + AvoidJointLimitsGoal(0.05)
@@ -132,6 +150,50 @@ def queued_ms(s, keys, data, queue):
     return times
 
 
+def philox_sass_count():
+    """Instructions of one Philox4x32-10 call in the megastep library's SASS:
+    ``philox_probe_kernel`` less ``philox_probe_base_kernel`` (the same
+    loads and stores without the call), all and the IMAD-pipe ones."""
+    from bio_ik_tpu_torch.kernels.build import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build("megastep")], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name and "philox_probe" in name and not m.group(1).startswith("NOP"):
+            c = counts.setdefault(name, {"all": 0, "imad": 0})
+            c["all"] += 1
+            c["imad"] += m.group(1).startswith("IMAD")
+    probe = [v for k, v in counts.items() if "probe_kernel" in k and "base" not in k]
+    base = [v for k, v in counts.items() if "base" in k]
+    if not (probe and base):
+        raise AssertionError(f"no Philox probe kernels in the SASS: {list(counts)}")
+    return {"instructions": probe[0]["all"] - base[0]["all"],
+            "imad": probe[0]["imad"] - base[0]["imad"]}
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def bitwise_frac(a, b, N):
+    """Share of the N lanes on which two output tuples are bitwise equal."""
+    import torch
+
+    return float(torch.stack([(x == y).reshape(-1, N).all(0) | (
+        x.isnan() & y.isnan()).reshape(-1, N).all(0) for x, y in zip(a, b)])
+        .all(0).float().mean())
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -167,13 +229,19 @@ class Smoke:
     # -------------------------------------------------------------- 1 --
     def build(self):
         import torch
-        from bio_ik_tpu_torch.kernels.build import build_all, ptxas_report
+        from bio_ik_tpu_torch.kernels.build import (build_all, ptxas_report,
+                                                    ptxas_table)
 
         secs = build_all(list(SOURCES))
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": secs,
               "ptxas": {n: ptxas_report(n).strip().splitlines()
                         for n in SOURCES}})
+        for n in SOURCES:
+            for row in ptxas_table(n):
+                emit({"phase": "build", "source": n, **row})
+        self.philox_sass = philox_sass_count()
+        emit({"phase": "build", "philox_call_sass": self.philox_sass})
 
     def _mega(self, n_steps, gens=8, mem_iters=8, memetic="q", sec_terms=(),
               model=None):
@@ -199,7 +267,7 @@ class Smoke:
 
     # -------------------------------------------------------------- 2 --
     def check(self):
-        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep, array_draw
+        from bio_ik_tpu_torch.kernels.bio2_megastep import GROUPS, Megastep, array_draw
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
 
         N = 4096
@@ -241,15 +309,29 @@ class Smoke:
                 m2(s2, c2, noise=n2[0], rates=n2[1], wipe_u=n2[2], wipe_g=n2[3]),
                 m2.body(s2, c2, array_draw(*n2, gens)))
             stages[f"{steps}x{gens}x{mem}@{spread}"] = float(a2.float().mean())
+        # every group size G: the same bits as G = 1 (the draws do not
+        # depend on G), and the plain version's agreement
+        by_group = {}
+        outs = {}
+        for G in GROUPS:
+            outs[G] = mega(state, consts, noise=noise[0], rates=noise[1],
+                           wipe_u=noise[2], wipe_g=noise[3], group=G)
+            by_group[G] = {"agree_frac": float(lane_agreement(outs[G], p_out)
+                                               .float().mean()),
+                           "bitwise_vs_g1_frac": bitwise_frac(outs[G], outs[1], 4096)}
         emit({"phase": "check", "lanes": 4096, "agree_frac": frac,
+              "group_chosen": mega.group(mega._lib(4096), self.dev, 4096),
+              "by_group": by_group,
               "plain_cpu_vs_card_agree_frac": floor, "fk_lanes": N,
               "fk_max_abs_err": err_tips, "fit_max_abs_err": err_fit,
               "agree_max_abs_err": max(max_abs_err(a, b, agree)
                                        for a, b in zip(k_out, p_out)),
               "agree_by_stage": stages})
-        if frac < 0.85:
+        if min([frac] + [r["agree_frac"] for r in by_group.values()]) < 0.85:
             raise AssertionError(f"kernel agrees with the plain version on "
-                                 f"{frac:.3f} of lanes (< 0.85)")
+                                 f"{frac:.3f} of lanes (< 0.85): {by_group}")
+        if min(r["bitwise_vs_g1_frac"] for r in by_group.values()) < 1.0:
+            raise AssertionError(f"a group size changes the result: {by_group}")
         if not (err_tips <= 1e-5 and err_fit <= 1e-5):
             raise AssertionError(f"exact FK/fitness disagree: {err_tips}, {err_fit}")
         self.kernels["megastep"].update(agree_frac=frac,
@@ -259,8 +341,9 @@ class Smoke:
     def rng(self):
         import torch
         from bio_ik_tpu_torch.kernels.bio2_fullstep import (
-            gauss_from_u01, philox_words, rate_from_bits, u01_from_bits)
-        from bio_ik_tpu_torch.kernels.bio2_megastep import philox_draw
+            clt4_from_fields, packed_fields, philox_words, rate_from_bits,
+            rates_from_words)
+        from bio_ik_tpu_torch.kernels.bio2_megastep import GROUPS, philox_draw
         from bio_ik_tpu_torch.kernels.checks import lane_agreement
 
         mega, sp = self._mega(2)
@@ -289,6 +372,8 @@ class Smoke:
         k1 = mega(state, consts, seed=seed, salt=salt)
         k2 = mega(state, consts, seed=seed, salt=salt)
         bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        groups_bitwise = {G: bitwise_frac(mega(state, consts, seed=seed, salt=salt,
+                                               group=G), k1, N) for G in GROUPS}
         # one scenario's salt changes (its two lanes of one island)
         salt2 = salt.clone()
         salt2[0, 100:102] ^= 0x5A5A5A5A
@@ -297,21 +382,40 @@ class Smoke:
         for a, b in zip(k1, k3):
             changed |= (a != b).any(dim=0)
         only_own = bool(changed[100:102].all()) and int(changed.sum()) == 2
+        # the floor of the agreement in Philox mode: the plain version on
+        # the CPU against itself on the card, the same lanes and bits
+        cpu_mega, _ = self._mega(2, model=self.cpu_model)
+        p_card = mega.body(state, consts, philox_draw(seed, salt, sp.V, sp.C))
+        p_cpu = cpu_mega.body(tuple(t.cpu() for t in state),
+                              tuple(t.cpu() for t in consts),
+                              philox_draw(seed, salt.cpu(), sp.V, sp.C))
+        floor = float(lane_agreement(p_card, p_cpu).float().mean())
         # the stream's statistics (the kernel draws these same bits)
         lane = torch.arange(N, device=self.dev, dtype=torch.int64)[None]
         idx = torch.arange(256, device=self.dev, dtype=torch.int64)[:, None]
         s64 = salt.to(torch.int64) & 0xFFFFFFFF
         w = philox_words(seed, lane, 0, 0, idx, s64)
-        g = gauss_from_u01([u01_from_bits(x) for x in w]).double()
-        kb = (rate_from_bits(w[0]).log2() + 23).round().long()
+        seq = torch.stack(w, 1).reshape(-1, N).unbind(0)     # 1 024 words per lane
+        f = packed_fields(seq, 4 * (len(seq) * 32 // 96))
+        g = torch.cat([clt4_from_fields(f[4 * v:4 * v + 4]) for v in range(len(f) // 4)]).double()
+        # the 16 rate fields of each call (words x, y), as a generation's
+        # rate call gives them
+        fields = torch.stack([rate_from_bits(x >> (4 * k)) for x in w[:2]
+                              for k in range(8)])
+        same = torch.equal(fields[:, 0], rates_from_words([x[:1] for x in w], 16))
+        kb = (fields.log2() + 23).round().long()
         hist = torch.bincount(kb.flatten(), minlength=16).double()
         rel = (hist / hist.mean() - 1).abs().max().item()
         out = {"phase": "rng", "kernel_vs_plain_agree_frac_by_lanes": agree,
+               "plain_cpu_vs_card_agree_frac": floor,
                "bitwise_repeat": bitwise, "salt_changes_only_own_lanes": only_own,
+               "group_bitwise_vs_chosen_frac": groups_bitwise,
                "gauss_draws": g.numel(), "gauss_mean": g.mean().item(),
-               "gauss_var": g.var().item(), "rate_bins_max_rel_dev": rel}
+               "gauss_var": g.var().item(), "rate_draws": kb.numel(),
+               "rate_bins_max_rel_dev": rel, "rate_fields_as_plain": same}
         emit(out)
-        if not (min(agree.values()) >= 0.85 and bitwise and only_own
+        if not (min(agree.values()) >= 0.85 and bitwise and only_own and same
+                and min(groups_bitwise.values()) == 1.0
                 and g.numel() >= 1 << 20
                 and abs(out["gauss_mean"]) < 0.01
                 and abs(out["gauss_var"] - 1) < 0.02 and rel < 0.1):
@@ -721,12 +825,25 @@ class Smoke:
     # -------------------------------------------------------------- 7 --
     def _mega_rows(self, shapes, sec_terms=()):
         """The megastep (in-kernel Philox) at each (lanes, n_steps) launch
-        shape, CUDA events, beside its bound from the TPU cost model's
-        counts (which leave out the secondary terms); with ``sec_terms`` the
-        secondary-goal kernel beside the pose-only one at the same shape."""
+        shape, CUDA events: at the group size G the wrapper chooses and at
+        every G, beside its bounds: ``bound_ms``, the larger of FP32 (the
+        TPU cost model's counts, which leave out the secondary terms) and
+        bytes, and ``int_bound_ms``, the generator's integer work alone —
+        its Philox calls, one call's SASS counted, at the larger of the
+        IMAD pipe's, the ALU pipe's and the issue limit's time — and, with
+        ``sec_terms``, the pose-only kernel at the same shape."""
         import torch
-        from bio_ik_tpu_torch.kernels.bio2_megastep import megastep_flops_per_lane
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (
+            GROUPS, megastep_flops_per_lane, philox_calls_per_lane_step)
 
+        if not hasattr(self, "philox_sass"):
+            self.philox_sass = philox_sass_count()
+        sass = self.philox_sass
+        clocks_per_call = max(sass["imad"] / IMAD_PER_SM_CLK,
+                              (sass["instructions"] - sass["imad"]) / ALU_PER_SM_CLK,
+                              sass["instructions"] / ISSUE_PER_SM_CLK)
+        sm_clocks = (max_sm_clock_hz()
+                     * torch.cuda.get_device_properties(self.dev).multi_processor_count)
         rows = []
         for N, steps in shapes:
             row = {"lanes": N, "n_steps": steps}
@@ -736,18 +853,28 @@ class Smoke:
                 mega, sp = self._mega(steps, sec_terms=terms)
                 state, consts, _ = self._inputs(sp, steps, N, with_noise=False,
                                                 sec_terms=terms)
-                run = lambda: mega(state, consts, seed=99, salt=salt)  # noqa: E731
-                run()
-                torch.cuda.synchronize()
-                row[key] = cuda_ms(run, 5)
+                G = mega.group(mega._lib(N), self.dev, N)
+                by = {}
+                for g in GROUPS if key == "ms" else (G,):
+                    run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
+                    run()
+                    torch.cuda.synchronize()
+                    by[g] = cuda_ms(run, 3)
+                row[key] = by[G]
+                if key == "ms":
+                    row.update(group=G, ms_by_group=by)
+                del state, consts
             flops = megastep_flops_per_lane(sp, steps) * N
             V, K = sp.V, sp.K
             nbytes = 4 * N * (2 * (4 * V + 2 + V + 7) + 5 * V + 9 * K + 1 + 1
                               + (8 * V if sec_terms else 0))
+            calls = philox_calls_per_lane_step(sp) * N * steps
             ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            row.update(gflop=flops / 1e9, bytes=nbytes,
-                       bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            int_ms = calls * clocks_per_call / sm_clocks * 1e3
+            bound = max(ops_ms, bytes_ms)
+            row.update(gflop=flops / 1e9, bytes=nbytes, philox_calls=calls,
+                       fp32_bound_ms=ops_ms, int_bound_ms=int_ms, bound_ms=bound,
+                       bound_by="bytes" if bound == bytes_ms else "operations",
                        flop_rate_tflops=flops / row["ms"] / 1e9,
                        ns_per_lane_step=row["ms"] * 1e6 / (N * steps))
             rows.append(row)
@@ -795,11 +922,17 @@ class Smoke:
         del noise
         emit({"phase": "times", "megastep": rows, "plain_phase1_ms": plain_ms,
               "rng_split": split, "megastep_regularized": reg_rows,
-              "gpu": smi_line()})
+              "ladder_ms": sum(r["ms"] for r in rows),
+              "regularized_ladder_ms": sum(r["ms"] for r in reg_rows),
+              "philox_call_sass": self.philox_sass, "gpu": smi_line()})
         r0 = rows[0]
         self.kernels["megastep"].update(
             ms=r0["ms"], plain_ms=plain_ms, bound_ms=r0["bound_ms"],
-            bound_by=r0["bound_by"], regularized_ms=reg_rows[0]["ms"])
+            bound_by=r0["bound_by"], fp32_bound_ms=r0["fp32_bound_ms"],
+            int_bound_ms=r0["int_bound_ms"], group=r0["group"],
+            regularized_ms=reg_rows[0]["ms"],
+            ladder_ms=sum(r["ms"] for r in rows),
+            regularized_ladder_ms=sum(r["ms"] for r in reg_rows))
         self._species_times()
 
     def _species_times(self):
@@ -855,7 +988,8 @@ class Smoke:
         and without the secondary terms in the memetic search (keep 1 on
         both sides, the plain version's secondary coefficients 0)."""
         import torch
-        from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw, philox_draw
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (GROUPS, array_draw,
+                                                            philox_draw)
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
 
         def agree_frac(a, b):
@@ -863,14 +997,14 @@ class Smoke:
 
         N = phase_shapes(REG_PHASES, REG_FRACTIONS)[0][0]
         out = {"phase": "sec_check", "lanes": N}
-        fracs, errs, controls = [], [], []
+        fracs, errs, controls, groups_bitwise = [], [], [], []
         for terms in (REG_TERMS, ALL_TERMS):
             mega, sp = self._mega(2, sec_terms=terms)
             state, consts, noise = self._inputs(sp, 2, N, sec_terms=terms)
 
-            def kernel(keep):
+            def kernel(keep, group=None):
                 return mega(state, consts, noise=noise[0], rates=noise[1],
-                            wipe_u=noise[2], wipe_g=noise[3], keep=keep)
+                            wipe_u=noise[2], wipe_g=noise[3], keep=keep, group=group)
 
             def plain(body, st, cs, nz, keep):
                 return body(st, cs, array_draw(*nz[:4], sp.gens, keep=keep))
@@ -881,7 +1015,14 @@ class Smoke:
             agree = lane_agreement(k_out, p_out)
             frac = float(agree.float().mean())
             err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
-            row = {"noise_tensor_agree_frac": frac}
+            row = {"noise_tensor_agree_frac": frac,
+                   "group_chosen": mega.group(mega._lib(N), self.dev, N)}
+            # every group size G: the same bits as G = 1
+            g1 = kernel(noise[4], 1)
+            row["group_bitwise_vs_g1_frac"] = {
+                G: bitwise_frac(kernel(noise[4], G), g1, N) for G in GROUPS}
+            groups_bitwise.append(min(row["group_bitwise_vs_g1_frac"].values()))
+            del g1
             if terms == REG_TERMS:
                 cpu_mega, _ = self._mega(2, sec_terms=terms, model=self.cpu_model)
                 cs, cc, cn = [tuple(t.cpu() for t in x) for x in (state, consts, noise)]
@@ -932,6 +1073,9 @@ class Smoke:
         if min(fracs) < 0.85:
             raise AssertionError(f"secondary megastep agrees on {min(fracs):.3f} "
                                  "of lanes (< 0.85)")
+        if min(groups_bitwise) < 1.0:
+            raise AssertionError("a group size changes the secondary megastep's "
+                                 f"result: {groups_bitwise}")
         if max(controls) >= 0.85:
             raise AssertionError(f"a wrong secondary branch agrees on {max(controls):.3f}"
                                  " of lanes: the 0.85 limit cannot tell it apart")
@@ -976,6 +1120,17 @@ class Smoke:
         frac = float(agree.float().mean())
         frac_p = float(lane_agreement(k2, p2).float().mean())
         err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
+        # the floor in both modes: the plain version on the CPU against
+        # itself on the card, on the first 4 096 lanes (lanes are independent)
+        n = 4096
+        cut = [a[..., :n].cpu() for a in args]
+        cpu_fs = Fullstep(self.cpu_model, [TIP], list(range(7)), [0], sp)
+        floor = float(lane_agreement([x[..., :n] for x in p_out], cpu_fs.inner(
+            *cut, array_draw_gen(noise[0][..., :n].cpu(), noise[1][..., :n].cpu())))
+            .float().mean())
+        floor_p = float(lane_agreement([x[..., :n] for x in p2], cpu_fs.inner(
+            *cut, philox_draw(77, salt[..., :n].cpu(), sp.V, sp.C)(0)[0]))
+            .float().mean())
         # the kernel driven on its own (no comparison): counted launches
         torch.cuda.synchronize()
         Fullstep.launches = 0
@@ -991,6 +1146,8 @@ class Smoke:
         bound_p = max(ops_ms, nbytes_p / PEAK_BYTES * 1e3)
         out = {"phase": "fullstep_check", "lanes": N,
                "noise_tensor_agree_frac": frac, "philox_agree_frac": frac_p,
+               "plain_cpu_vs_card_agree_frac": floor,
+               "plain_cpu_vs_card_philox_agree_frac": floor_p,
                "agree_max_abs_err": err, "launches_timed": launches,
                "noise_tensor_ms": ms, "philox_ms": ms_p, "plain_ms": plain_ms,
                "flop_per_lane": megastep_flops_per_lane(sp, 1),

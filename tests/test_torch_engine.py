@@ -75,7 +75,7 @@ def test_mega_prep_matches_jax(arms, solvers, rng):
     jkeys = jax.random.split(jax.random.PRNGKey(3), B)
     jstate, jconsts, jsalt, jbest = _np(jax.jit(js.engine._mega_prep)(jkeys, jdata))
     tstate, tconsts, tsalt, tbest = tree_to_numpy(ts.engine._mega_prep(
-        tree_from_numpy(_np(jkeys)), tree_from_numpy(_np(jdata))))
+        tree_from_numpy(_np(jkeys), "cpu"), tree_from_numpy(_np(jdata), "cpu")))
     M = B * 2 * 2
     assert tstate[0].shape[-1] == M            # the port does not pad lanes
     for name, a, b in zip(("genes", "grads", "sfit", "sol"), tstate, jstate):
@@ -108,7 +108,7 @@ def test_goal_rows_match_jax(rng):
     jdata = jax.tree.map(lambda x: jnp.asarray(
         rng.normal(size=(B,) + x.shape).astype(np.float32)), d0)
     jrows = _np(js.engine._goal_rows(jdata, B))
-    trows = tree_to_numpy(ts.engine._goal_rows(tree_from_numpy(_np(jdata)), B))
+    trows = tree_to_numpy(ts.engine._goal_rows(tree_from_numpy(_np(jdata), "cpu"), B))
     for a, b in zip(trows, (jrows[0], jrows[1], jrows[3], jrows[4])):
         np.testing.assert_array_equal(a, b)
 
@@ -129,8 +129,8 @@ def test_eval_lanes_and_merge_match_jax(arms, solvers, rng):
     sol_fit = rng.uniform(0, 1e-3, size=(1, M)).astype(np.float32)
     args = (sol.T.copy(), sol_fit, sol_tips.T.copy())
     jres = _np(jax.jit(js.engine._eval_lanes)(*[jnp.asarray(a) for a in args], jdata))
-    tres = tree_to_numpy(ts.engine._eval_lanes(*tree_from_numpy(args),
-                                               tree_from_numpy(_np(jdata))))
+    tres = tree_to_numpy(ts.engine._eval_lanes(*tree_from_numpy(args, "cpu"),
+                                               tree_from_numpy(_np(jdata), "cpu")))
     assert 0 < jres[2].sum() < B
     for a, b in zip(tres, jres):
         np.testing.assert_array_equal(a, b)
@@ -139,8 +139,8 @@ def test_eval_lanes_and_merge_match_jax(arms, solvers, rng):
             rng.uniform(size=B).astype(np.float32))
     jm_ = _np(js.engine._merge(tuple(jnp.asarray(x) for x in jres),
                                tuple(jnp.asarray(x) for x in cand)))
-    tm_ = tree_to_numpy(ts.engine._merge(tree_from_numpy(tuple(jres)),
-                                         tree_from_numpy(cand)))
+    tm_ = tree_to_numpy(ts.engine._merge(tree_from_numpy(tuple(jres), "cpu"),
+                                         tree_from_numpy(cand, "cpu")))
     for a, b in zip(tm_, jm_):
         np.testing.assert_array_equal(a, b)
 

@@ -54,7 +54,7 @@ def test_fullstep_wrapper_takes_the_plain_version_on_cpu():
     tm = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
     sp = SpeciesParams(**SP)
     fs, args, noise = _fullstep(tm, sp, 128)
-    args, noise = tree_from_numpy(args), tree_from_numpy(noise)
+    args, noise = tree_from_numpy(args, "cpu"), tree_from_numpy(noise, "cpu")
     Fullstep.launches = 0
     out = fs(*args, noise=noise[0], rates=noise[1])
     ref = fs.inner(*args, array_draw_gen(noise[0], noise[1]))

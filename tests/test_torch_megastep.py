@@ -114,8 +114,8 @@ def test_fullstep_inner_matches_jax(models, inputs):
     jinner, _ = j_make_fullstep_inner(jm, [TIP], list(range(V)), [0],
                                       JSpeciesParams(**SP))
     args = _fullstep_args(state, consts)
-    t_out = tinner(*tree_from_numpy(args), array_draw_gen(
-        *tree_from_numpy(noise[:2])))
+    t_out = tinner(*tree_from_numpy(args, "cpu"), array_draw_gen(
+        *tree_from_numpy(noise[:2], "cpu")))
     j_out = jinner(*[jnp.asarray(a) for a in args],
                    j_array_draw_gen(jnp.asarray(noise[0]), jnp.asarray(noise[1])))
     agree = lane_agreement(t_out, [np.asarray(x) for x in j_out])
@@ -131,8 +131,8 @@ def test_megastep_body_matches_jax(models, inputs):
                                      JSpeciesParams(**SP), NSTEPS,
                                      use_pltpu_roll=False, unroll=True)
     assert F == jF == 0
-    t_out = body(tree_from_numpy(state), tree_from_numpy(consts),
-                 array_draw(*tree_from_numpy(noise), SP["gens"]))
+    t_out = body(tree_from_numpy(state, "cpu"), tree_from_numpy(consts, "cpu"),
+                 array_draw(*tree_from_numpy(noise, "cpu"), SP["gens"]))
     jn = [jnp.asarray(x) for x in noise]
 
     def draw(i):
@@ -156,7 +156,7 @@ def test_megastep_body_matches_jax(models, inputs):
 
 def test_wrapper_takes_the_plain_version_on_cpu(models, inputs):
     _, tm = models
-    state, consts, noise = tree_from_numpy(inputs)
+    state, consts, noise = tree_from_numpy(inputs, "cpu")
     sp = SpeciesParams(**SP)
     mega = Megastep(tm, [TIP], list(range(V)), [0], sp, NSTEPS)
     Megastep.launches = 0
@@ -208,7 +208,7 @@ def test_philox_draw_statistics_and_salt():
 
 
 def test_interop_round_trip(inputs):
-    back = tree_to_numpy(tree_from_numpy(inputs))
+    back = tree_to_numpy(tree_from_numpy(inputs, "cpu"))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(inputs)):
         np.testing.assert_array_equal(a, b)
 

@@ -50,7 +50,11 @@ from bio_ik_tpu_torch.kernels.bio2_megastep import (
     make_megastep_body,
     philox_draw,
 )
-from bio_ik_tpu_torch.kernels.bio2_fullstep import philox_words
+from bio_ik_tpu_torch.kernels.bio2_fullstep import (
+    philox_words,
+    rates_from_words,
+    u01_from_bits,
+)
 from bio_ik_tpu_torch.kernels.bio2_step import (
     SEC_TERMS,
     SpeciesKernel,
@@ -142,7 +146,7 @@ def _data(jp, tp, jm, rng, B):
         if "target" in grp:
             grp["target"] = rng.uniform(-1, 1, size=grp["target"].shape
                                         ).astype(np.float32)
-    return jd, tree_from_numpy(jd)
+    return jd, tree_from_numpy(jd, "cpu")
 
 
 # ---- problem: builders, evaluators, acceptance --------------------------
@@ -209,7 +213,7 @@ def test_joint_variable_primary_acceptance_matches_jax(arms, rng):
     qa[:, 3] = -1.0 + rng.uniform(-1e-3, 1e-3, size=B)
     jd = _np(jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
                           jp.make_data(jnp.asarray(jm.neutral_q()))))
-    td = tree_from_numpy(jd)
+    td = tree_from_numpy(jd, "cpu")
     empty = np.zeros((B, 0, 3), np.float32), np.zeros((B, 0, 4), np.float32)
     jok = np.asarray(jp.check_solution(JFrame(*map(jnp.asarray, empty)),
                                        jnp.asarray(qa), jd))
@@ -279,8 +283,8 @@ def test_winner_ranks_successes_by_combined_fitness_as_jax(arms, all_kinds, rng)
     args = (q[:, :Va].T.copy(), sol_fit, sol_tips.T.copy())
     jres = _np(jax.jit(js.engine._eval_lanes)(*[jnp.asarray(a) for a in args],
                                               jax.tree.map(jnp.asarray, jd)))
-    tres = tree_to_numpy(ts.engine._eval_lanes(*tree_from_numpy(args),
-                                               tree_from_numpy(jd)))
+    tres = tree_to_numpy(ts.engine._eval_lanes(*tree_from_numpy(args, "cpu"),
+                                               tree_from_numpy(jd, "cpu")))
     assert 0 < jres[2].sum() < B
     for a, b_ in zip(tres[:3], jres[:3]):
         np.testing.assert_array_equal(a, b_)
@@ -405,7 +409,7 @@ def test_species_inner_sec_matches_jax(terms):
     tm = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
     sp = dict(V=10, K=1, C=4, gens=2, mem_iters=2, memetic="q", quat_slices=(3,))
     args = species_inputs(tm, "tool", SpeciesParams(**sp), N, sec_terms=terms)
-    out = make_species_inner(SpeciesParams(**sp), terms)(*tree_from_numpy(args))
+    out = make_species_inner(SpeciesParams(**sp), terms)(*tree_from_numpy(args, "cpu"))
     ref = j_make_species_inner(JSpeciesParams(**sp), terms)(
         *[jnp.asarray(a) for a in args])
     assert lane_agreement(out, [np.asarray(r) for r in ref]).float().mean() >= 0.9
@@ -423,8 +427,8 @@ def test_megastep_body_sec_matches_jax(arms, sec_inputs, terms):
     state, consts, noise = sec_inputs[terms]
     body, _ = make_megastep_body(tm, [TIP], list(range(V)), [0],
                                  SpeciesParams(**SP), 2, sec_terms=terms)
-    t_out = body(tree_from_numpy(state), tree_from_numpy(consts),
-                 array_draw(*tree_from_numpy(noise[:4]), SP["gens"],
+    t_out = body(tree_from_numpy(state, "cpu"), tree_from_numpy(consts, "cpu"),
+                 array_draw(*tree_from_numpy(noise[:4], "cpu"), SP["gens"],
                             keep=torch.from_numpy(noise[4])))
     jbody, _ = j_make_megastep_body(jm, [TIP], list(range(V)), [0],
                                     JSpeciesParams(**SP), 2, use_pltpu_roll=False,
@@ -449,17 +453,18 @@ def test_fullstep_inner_sec_matches_jax(arms, sec_inputs):
     jinner, _ = j_make_fullstep_inner(jm, [TIP], list(range(V)), [0],
                                       JSpeciesParams(**SP), sec_terms=REG)
     g = slice(0, SP["gens"])
-    t_out = tinner(*tree_from_numpy(args), array_draw_gen(
-        *tree_from_numpy((noise[0][g], noise[1][g], noise[4][g]))))
+    t_out = tinner(*tree_from_numpy(args, "cpu"), array_draw_gen(
+        *tree_from_numpy((noise[0][g], noise[1][g], noise[4][g]), "cpu")))
     j_out = jinner(*[jnp.asarray(a) for a in args], j_array_draw_gen(
         *[jnp.asarray(x[g]) for x in (noise[0], noise[1], noise[4])]))
     assert lane_agreement(t_out, [np.asarray(x) for x in j_out]).float().mean() >= 0.9
 
 
 def test_philox_keep_word():
-    """The keep uniform of generation g is Philox draw V·C + C: the same
-    bits on every call, none of the noise or rate words, and drawing it
-    leaves the noise and rates unchanged."""
+    """The keep uniform of generation g is the last word of the
+    generation's rate call (Philox draw V·C, whose first two words hold the
+    C = 16 rates): the same bits on every call, no Gaussian's word, and
+    drawing it leaves the noise and rates unchanged."""
     C, n = 16, 256
     salt = torch.arange(n, dtype=torch.int32)[None] // 2
     draw_gen = philox_draw(11, salt, V, C, keep=True)(3)[0]
@@ -472,16 +477,18 @@ def test_philox_keep_word():
     assert tuple(keep.shape) == (1, n) and 0.0 <= float(keep.min()) < 1.0
     lane = torch.arange(n, dtype=torch.int64)[None]
     s64 = salt.to(torch.int64)
-    kw = philox_words(11, lane, 3, 1, torch.tensor([[V * C + C]]), s64)[0]
-    used = philox_words(11, lane, 3, 1, torch.arange(V * C + C)[:, None], s64)
-    assert not any(bool((w == kw).any()) for w in used)
+    rw = philox_words(11, lane, 3, 1, torch.tensor([[V * C]]), s64)
+    assert torch.equal(keep, u01_from_bits(rw[3]))
+    assert torch.equal(rates, rates_from_words(rw, C))
+    used = philox_words(11, lane, 3, 1, torch.arange(V * C)[:, None], s64)
+    assert not any(bool((w == rw[3]).any()) for w in used)
     assert float(keep.std()) > 0.25
 
 
 def test_wrappers_with_secondary_take_the_plain_version_on_cpu(arms, sec_inputs):
     tm = arms[1]
     sp = SpeciesParams(**SP)
-    state, consts, noise = tree_from_numpy(sec_inputs[REG])
+    state, consts, noise = tree_from_numpy(sec_inputs[REG], "cpu")
     mega = Megastep(tm, [TIP], list(range(V)), [0], sp, 2, sec_terms=REG)
     Megastep.launches = SpeciesKernel.launches = 0
     out = mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
@@ -493,7 +500,7 @@ def test_wrappers_with_secondary_take_the_plain_version_on_cpu(arms, sec_inputs)
              wipe_g=noise[3])
     fm = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
     ssp = SpeciesParams(V=10, K=1, C=4, gens=2, mem_iters=2, quat_slices=(3,))
-    args = tree_from_numpy(species_inputs(fm, "tool", ssp, 64, sec_terms=REG))
+    args = tree_from_numpy(species_inputs(fm, "tool", ssp, 64, sec_terms=REG), "cpu")
     kern = SpeciesKernel(ssp, REG)
     assert all(torch.equal(a, b) for a, b in zip(kern(*args), kern.inner(*args)))
     with pytest.raises(ValueError, match="keeps"):

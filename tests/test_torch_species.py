@@ -62,7 +62,7 @@ def test_species_inner_matches_jax(name, quat, memetic):
     sp = dict(V=tm.nvars, K=1, C=4, gens=2, mem_iters=2, memetic=memetic,
               quat_slices=quat)
     args = species_inputs(tm, "tool", SpeciesParams(**sp), 256)
-    out = make_species_inner(SpeciesParams(**sp))(*tree_from_numpy(args))
+    out = make_species_inner(SpeciesParams(**sp))(*tree_from_numpy(args, "cpu"))
     ref = jax.jit(j_make_species_inner(JSpeciesParams(**sp)))(
         *[jnp.asarray(a) for a in args])
     agree = lane_agreement(out, [np.asarray(r) for r in ref])
@@ -72,7 +72,7 @@ def test_species_inner_matches_jax(name, quat, memetic):
 def test_species_kernel_wrapper_dispatch():
     tm = _model("planar_arm.urdf")
     sp = SpeciesParams(V=5, K=1, gens=2, mem_iters=2)
-    args = tree_from_numpy(species_inputs(tm, "tool", sp, 64))
+    args = tree_from_numpy(species_inputs(tm, "tool", sp, 64), "cpu")
     kern = SpeciesKernel(sp)
     SpeciesKernel.launches = 0
     out = kern(*args)
@@ -148,7 +148,7 @@ def test_species_bookkeeping_matches_jax_transcription(rng):
         rng.uniform(size=(B, I, V)).astype(f32),
         np.full(V, -1.0, f32), np.full(V, 2.0, f32),
     )
-    out = FusedBio2Engine._species_book(*tree_from_numpy(vals))
+    out = FusedBio2Engine._species_book(*tree_from_numpy(vals, "cpu"))
     ref = _np_book(*vals)
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), b)
@@ -192,7 +192,7 @@ def test_species_draws_injected_and_own(rng):
             r.standard_normal((sp.gens, sp.V, sp.C, M), dtype=np.float32),
             np.exp2(k - 23.0).astype(np.float32),
             r.uniform(size=(B, 2)).astype(np.float32),
-            r.uniform(size=(B, 2, sp.V)).astype(np.float32)))
+            r.uniform(size=(B, 2, sp.V)).astype(np.float32)), "cpu")
 
     a = eng._species_solve(keys, data, draws)
     assert calls == [0, 1, 2, 3]
