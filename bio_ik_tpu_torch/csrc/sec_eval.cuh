@@ -27,11 +27,11 @@ enum { SEC_ALPHA = 0, SEC_BETA = 1, SEC_GAMMA = 2, SEC_DELTA = 3, SEC_TBAR = 4,
 enum { SECM_ALPHA = 1, SECM_BETA = 2, SECM_GAMMA = 4, SECM_DELTA = 8 };
 
 struct SecRows {
-  const float* p;
+  const float* p;   // the lane's element of row 0
   size_t N;
-  int V, n;
+  int V;
   __device__ __forceinline__ float operator()(int r, int v) const {
-    return p[((size_t)r * V + v) * N + n];
+    return p[(size_t)(r * V + v) * N];   // a lane-uniform offset
   }
 };
 

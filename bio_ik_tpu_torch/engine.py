@@ -29,19 +29,21 @@ Randomness.  Per-scenario keys are ``(B, 2)`` integer tensors of 32-bit
 words (the layout of a raw JAX ``PRNGKey``).  :func:`_scenario_salt` equals
 the JAX engine's bit for bit and is XORed into every raw 32-bit word a
 lane draws, so identical keys reproduce bitwise and a fresh ``keys[i]``
-changes scenario i only.  The streams themselves differ from JAX's:
+changes scenario i only.  Both tiers draw from one stream, counter-based
+Philox4x32-10 keyed by the per-chunk seed (:meth:`_chunk_seed`) at counter
+(lane, step within the chunk, generation, draw) — the per-phase key fold
+(:func:`fold_in`) is an integer hash in place of JAX's threefry:
 
-  * fullstep tier: the per-chunk seed (:meth:`_chunk_seed`) feeds the
-    kernel's Philox4x32-10, and the per-phase key fold (:func:`fold_in`) is
-    an integer hash in place of JAX's threefry;
-  * species tier: the JAX engine draws each step's words with
-    ``jax.random.bits`` under split keys (engine.py:705-715); the port draws
-    them from a device ``torch.Generator`` seeded per step from
-    ``config.seed`` and the step index (:meth:`_step_seed`, ``mix32``), one
-    generation at a time, in a fixed order (noise, rates, wipeout coin,
-    wipeout genes, then the pre-selection keeps when there are secondary
-    goals), then maps them through the same ``u01``/gauss/rate
-    constructions.
+  * fullstep tier: the megastep kernel draws every word in-kernel;
+  * species tier: the species kernel draws the children's noise, the
+    rates and the pre-selection keeps in-kernel at the megastep's counters
+    (``bio2_megastep.philox_draw`` is the plain version of both); the
+    wipeout coin and restart genes of an island are the Philox wipe words
+    of its second species' lane (generation word ``0xFFFFFFFF``, the words
+    the megastep's wipeout reads), drawn in torch (:meth:`_species_stream`).
+
+The JAX engine draws the species tier's words with ``jax.random.bits``
+under split keys outside its kernel (engine.py:705-715); the streams differ.
 """
 
 from __future__ import annotations
@@ -52,10 +54,10 @@ import numpy as np
 import torch
 
 from .interop import tree_map
-from .kernels.bio2_fullstep import (POSE_KINDS, gauss_from_u01, rate_from_bits,
-                                    u01_from_bits)
-from .kernels.bio2_megastep import MEGASTEP_SHAPES, Megastep
-from .kernels.bio2_step import SPECIES_SHAPES, SpeciesKernel, SpeciesParams, _P
+from .kernels.bio2_fullstep import POSE_KINDS
+from .kernels.bio2_megastep import MEGASTEP_SHAPES, Megastep, philox_wipe
+from .kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel, SpeciesParams, _P,
+                                quat_mask)
 from .kernels.fk_rows import FkRows, supports_fullstep_chain
 from .math.frame import Frame
 from .solvers.bio2 import quat_gene_slices
@@ -218,10 +220,12 @@ class FusedBio2Engine:
                 return (f"the megastep kernel is not instantiated for "
                         f"(V, K, T) = {(V, K, p.ntips)} (csrc/megastep.cu has "
                         f"{list(MEGASTEP_SHAPES)}; ROADMAP.md, port queue item 9)")
-            if not fullstep and (V, K) not in SPECIES_SHAPES:
+            qmask = quat_mask(quat_gene_slices(model, p.active_vars))
+            if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
                 return (f"the species kernel is not instantiated for (V, K) = "
-                        f"{(V, K)} (csrc/species.cu has {list(SPECIES_SHAPES)}; "
-                        "ROADMAP.md, port queue item 9)")
+                        f"{(V, K)} with quaternion mask {qmask} (csrc/species.cu "
+                        f"has (V, K, mask) {list(SPECIES_SHAPES)}; ROADMAP.md, port "
+                        "queue item 9)")
         return None
 
     # ------------------------------------------------------------------
@@ -450,45 +454,24 @@ class FusedBio2Engine:
 
     # ------------------------------------------------------------------
     # species tier (JAX engine.py:676-839)
-    def _step_seed(self, step: int) -> int:
-        """Seed of species-tier step ``step``'s generator: an integer hash of
-        the static config seed and the step index."""
-        return mix32(mix32(self.config.seed ^ 0x5EC1E5) ^ mix32(step + 1))
-
-    def _species_draws(self, step: int, salt_row, salt_bi):
-        """Step ``step``'s randomness: ``noise (gens, V, C, M)``, ``rates
-        (gens, C, M)``, ``wipe_u (B, I)``, ``wipe_g (B, I, V)`` and, with
-        secondary goals, ``keeps (gens, 1, M)``.  Raw 32-bit
-        words from a device generator, each XORed with the salt of its
-        scenario (``salt_row (1, M)``, ``salt_bi (B, I)``, int32), mapped as
-        the JAX engine's ``_gauss_bits``/``_rate_bits``/``_u01_bits``.  The
-        noise is drawn one generation at a time to bound the temporaries."""
-        sp, gm = self.sp, self.config.gauss_mode
-        V, C, M = sp.V, sp.C, salt_row.shape[-1]
-        dev = salt_row.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self._step_seed(step))
-
-        def words(*shape):
-            return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
-                                 device=dev, generator=gen)
-
-        noise = torch.empty((sp.gens, V, C, M), dtype=torch.float32, device=dev)
-        for g in range(sp.gens):
-            if gm == "clt4":
-                u = [u01_from_bits(words(V, C, M) ^ salt_row) for _ in range(4)]
-            else:
-                u = [u01_from_bits(words(V, C, M) ^ salt_row, lo=2.0 ** -25),
-                     u01_from_bits(words(V, C, M) ^ salt_row)]
-            noise[g] = gauss_from_u01(u, gm)
-            del u
-        rates = rate_from_bits(words(sp.gens, C, M) ^ salt_row)
-        wipe_u = u01_from_bits(words(*salt_bi.shape) ^ salt_bi)
-        wipe_g = u01_from_bits(words(*salt_bi.shape, V) ^ salt_bi[..., None])
-        if self.sec_terms:
-            keeps = u01_from_bits(words(sp.gens, 1, M) ^ salt_row)
-            return noise, rates, wipe_u, wipe_g, keeps
-        return noise, rates, wipe_u, wipe_g
+    def _species_stream(self, c: int, i: int, salt_row):
+        """Step ``i`` of acceptance chunk ``c``'s randomness on the species
+        tier: the species kernel's Philox arguments (seed :meth:`_chunk_seed`
+        of the chunk, the step within it, the ``(1, M)`` int32 salt row: the
+        megastep tier's stream), and the wipeout coin ``(B, I)`` and restart
+        genes ``(B, I, V)`` of each island — the Philox wipe words of its
+        second species' lane, drawn at ``B·I`` lanes
+        (:func:`bio2_megastep.philox_wipe`)."""
+        seed = self._chunk_seed(c)
+        I, V = self.islands, self.sp.V
+        M = salt_row.shape[-1]
+        lane = torch.arange(1, M, _S, device=salt_row.device,
+                            dtype=torch.int64)[None]
+        salt = salt_row[:, 1::_S].to(torch.int64) & _M32
+        wipe_u, wipe_g = philox_wipe(seed, lane, salt, i, V)
+        B = M // (I * _S)
+        rng = dict(seed=seed, step=i, salt=salt_row, gauss_mode=self.config.gauss_mode)
+        return rng, wipe_u.reshape(B, I), wipe_g.T.reshape(B, I, V)
 
     @staticmethod
     def _species_book(f, qa_bis, tips_bis, genes, grads, sfit, solution,
@@ -542,8 +525,8 @@ class FusedBio2Engine:
 
     def _species_solve(self, keys, data, draws=None):
         """Species-tier solve.  ``draws(step) → (noise, rates, wipe_u,
-        wipe_g[, keeps])`` replaces the engine's own draws
-        (:meth:`_species_draws`), for tests."""
+        wipe_g[, keeps])`` replaces the engine's own Philox stream
+        (:meth:`_species_stream`) by noise tensors, for tests."""
         p, ctx = self.problem, self.ctx
         V, K, I, S = self.sp.V, self.sp.K, self.islands, _S
         ls = self._lane_setup(keys, data)
@@ -556,17 +539,10 @@ class FusedBio2Engine:
             return f
 
         data_m = tree_map(per_lane(I * S), data)
-        data_bi = tree_map(per_lane(I), data)
         seed_full_m = data_m["seed_full"]
         tip_slots = [g[2] for g in self.ginst]
         seed_tips = torch.cat([ls["seed_tips_f"].pos, ls["seed_tips_f"].quat], -1)
         salt_row = ls["salt_row"]
-        if draws is None:
-            salt_bi = salt_row[0].reshape(B, I, S)[..., 0]
-
-            def draws(step):
-                return self._species_draws(step, salt_row, salt_bi)
-
         sec_rows = (ls["lane_goal"](self._secondary_rows(data, B))
                     if self.sec_terms else None)
         amin, amax = p.amin.to(torch.float32), p.amax.to(torch.float32)
@@ -583,8 +559,12 @@ class FusedBio2Engine:
         best = eval_islands()
         for c in range(self.nchecks):
             for i in range(self.spc):
-                noise, rates, wipe_u, wipe_g, *keeps = draws(c * self.spc + i)
-                sec_args = (keeps[0], sec_rows) if self.sec_terms else ()
+                if draws is None:
+                    rng, wipe_u, wipe_g = self._species_stream(c, i, salt_row)
+                else:
+                    noise, rates, wipe_u, wipe_g, *keeps = draws(c * self.spc + i)
+                    rng = dict(noise=noise, rates=rates,
+                               keeps=keeps[0] if keeps else None)
                 # linearize at parent 0 (reference :341-346)
                 tips0_f, deltas_f = ctx.linearize(ctx.qfull(seed_full_m, genes[:V].T))
                 tips0 = tips0_f[:, tip_slots].reshape(M, K * 7).T.contiguous()
@@ -593,8 +573,8 @@ class FusedBio2Engine:
                 genes, grads = self.kernel(
                     genes, grads, tips0, deltas, ls["gpos"], ls["gquat"],
                     ls["wpos"], ls["wrot"], ls["span"], ls["cmin"], ls["cmax"],
-                    noise, rates, *sec_args)
-                del noise, rates, keeps, sec_args, tips0, deltas, tips0_f, deltas_f
+                    sec=sec_rows, **rng)
+                del rng, tips0, deltas, tips0_f, deltas_f
                 # exact FK and fitness of the new parent 0
                 qa_new = genes[:V].T
                 tips_m = ctx.tips_packed(seed_full_m, qa_new)       # (M, T, 7)

@@ -14,11 +14,10 @@ uses counter-based Philox4x32-10, written once here in int64 torch
 arithmetic and once in the CUDA kernel, so both produce the same bits for
 the same (seed, lane, step, generation, draw) counter.  As in the
 reference, each lane's salt is XORed into every raw 32-bit word.  How the
-megastep maps words to draws is ``bio2_megastep.philox_draw``: its CLT4
-Gaussians come from :func:`packed_fields` and :func:`clt4_from_fields`,
-its rates from
-:func:`rates_from_words`; the species tier's draws (``engine``) keep
-:func:`gauss_from_u01` and :func:`rate_from_bits` word by word.
+megastep and species kernels map words to draws is
+``bio2_megastep.philox_draw``: their CLT4 Gaussians come from
+:func:`packed_fields` and :func:`clt4_from_fields`, their rates from
+:func:`rates_from_words`.
 
 With joint-space secondary goals (``sec_terms``) the step ranks each
 generation's children by secondary fitness and keeps a random-count best
@@ -54,13 +53,10 @@ _SQRT3 = float(np.float32(np.sqrt(3.0)))
 
 def _mulhilo(a: int, b):
     """(hi, lo) 32-bit words of ``a·b`` for a 32-bit constant ``a`` and an
-    int64 tensor ``b`` of 32-bit values, exact in int64 (16-bit split)."""
-    lo_part = (a & 0xFFFF) * b            # < 2^48
-    hi_part = (a >> 16) * b               # < 2^48
-    mid = hi_part + (lo_part >> 16)
-    hi = (mid >> 16) & _M32
-    lo = ((mid & 0xFFFF) << 16) | (lo_part & 0xFFFF)
-    return hi, lo
+    int64 tensor ``b`` of 32-bit values: the 64-bit product, which int64
+    arithmetic keeps modulo 2^64 (two's complement), split in two."""
+    p = b * a
+    return (p >> 32) & _M32, p & _M32
 
 
 def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
@@ -76,15 +72,18 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_words(seed: int, lane, step: int, gen: int, idx, salt):
+def philox_words(seed: int, lane, step: int, gen, idx, salt):
     """The four salted 32-bit words of counter ``(lane, step, gen, idx)``
-    under key ``(seed, 0)``; ``lane``/``idx``/``salt`` broadcast as int64
-    tensors, ``salt`` XORed into every word."""
-    lane, idx = torch.broadcast_tensors(lane, idx)
-    c1 = torch.full_like(lane, step & _M32)
-    c2 = torch.full_like(lane, gen & _M32)
-    words = philox4x32(lane, c1, c2, idx, seed & _M32, 0)
-    return tuple(w ^ salt for w in words)
+    under key ``(seed, 0)``; ``lane``/``idx``/``salt`` (and ``gen``, an int
+    or a tensor) broadcast as int64 tensors, ``salt`` XORed into every
+    word."""
+    # the counter words broadcast as the rounds mix them: the first rounds
+    # run on the narrow shapes
+    gen = torch.as_tensor(gen, dtype=torch.int64, device=lane.device) & _M32
+    c1 = torch.as_tensor(step & _M32, dtype=torch.int64, device=lane.device)
+    words = philox4x32(lane, c1, gen, idx, seed & _M32, 0)
+    shape = torch.broadcast_tensors(lane, idx, gen)[0].shape
+    return tuple((w ^ salt).expand(shape) for w in words)
 
 
 def u01_from_bits(bits, lo=0.0):
@@ -126,13 +125,13 @@ def clt4_from_fields(fields):
 def rates_from_words(words, C: int):
     """The C mutation rates of a generation from one Philox call: rate c is
     :func:`rate_from_bits` of the 4-bit field c — word ``c // 8``, bits
-    ``4·(c % 8)`` — of the call's words ``(x, y, z)``; ``(C, N)`` from
-    ``(1, N)`` words, C ≤ 24."""
+    ``4·(c % 8)`` — of the call's words ``(x, y, z)``; ``(..., C, N)`` from
+    ``(..., 1, N)`` words, C ≤ 24."""
     if C > 24:
         raise ValueError(f"{C} rates exceed the 24 fields of one call")
-    w = torch.cat(list(words[:3]), 0)                         # (3, N)
+    w = torch.cat(list(words[:3]), -2)                        # (..., 3, N)
     c = torch.arange(C, device=w.device)
-    return rate_from_bits(w[c // 8] >> (4 * (c % 8))[:, None])
+    return rate_from_bits(w[..., c // 8, :] >> (4 * (c % 8))[:, None])
 
 
 def gauss_from_u01(u, gauss_mode="clt4"):

@@ -55,8 +55,8 @@ from .bio2_fullstep import (
 from .bio2_step import SpeciesParams, _P, sec_term_mask
 from .fk_rows import FkRows
 
-__all__ = ["make_megastep_body", "array_draw", "philox_draw", "Megastep",
-           "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
+__all__ = ["make_megastep_body", "array_draw", "philox_draw", "philox_wipe",
+           "Megastep", "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
            "philox_calls_per_lane_step", "clt4_calls", "choose_group",
            "MEGASTEP_SHAPES",
            "GROUPS"]
@@ -203,7 +203,9 @@ def array_draw(noise, rates, wipe_u, wipe_g, gens: int, keep=None):
 
 def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
                 keep: bool = False):
-    """``draw(i)`` from the Philox stream the CUDA kernel draws in-kernel:
+    """``draw(i)`` from the Philox stream the CUDA kernel draws in-kernel
+    (``draw_gen(g)`` of one generation, or of a ``(G, 1, 1)`` int64 tensor
+    of generations at once, with a leading G axis):
     counter ``(lane, step i, generation g, draw)`` under key ``(seed, 0)``,
     the lane's salt XORed into every word.  Child c's clt4 Gaussians come
     from draws ``c·NC … c·NC + NC − 1`` (``NC = ceil(3V/4)``): their words
@@ -228,30 +230,42 @@ def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
     gidx = torch.arange(C * NC if gauss_mode == "clt4" else V * C, device=dev,
                         dtype=torch.int64)[:, None]
     ridx = torch.full((1, 1), V * C, device=dev, dtype=torch.int64)
-    widx = torch.arange((V + 4) // 4, device=dev, dtype=torch.int64)[:, None]
 
     def draw(i):
         def draw_gen(g):
             w = philox_words(seed, lane, i, g, gidx, salt64)
-            if gauss_mode == "clt4":       # child c's words: (c, 4·NC, N)
-                cw = torch.stack(w, 1).reshape(C, 4 * NC, N).unbind(1)
+            lead = w[0].shape[:-2]     # (G,) for a (G, 1, 1) tensor of generations
+            if gauss_mode == "clt4":       # child c's words: (..., c, 4·NC, N)
+                cw = torch.stack(w, -2).reshape(*lead, C, 4 * NC, N).unbind(-2)
                 f = packed_fields(cw, 4 * V)
                 noise = torch.stack([clt4_from_fields(f[4 * v:4 * v + 4])
-                                     for v in range(V)])
+                                     for v in range(V)], -3)
             else:
                 noise = gauss_from_u01([u01_from_bits(w[0], lo=2.0 ** -25),
                                         u01_from_bits(w[1])], gauss_mode)
+            noise = noise.reshape(*lead, V, C, N)
             rw = philox_words(seed, lane, i, g, ridx, salt64)
             rates = rates_from_words(rw, C)
             if keep:
-                return noise.view(V, C, N), rates, u01_from_bits(rw[3])
-            return noise.view(V, C, N), rates
+                return noise, rates, u01_from_bits(rw[3])
+            return noise, rates
 
-        ww = torch.stack(philox_words(seed, lane, i, _WIPE_GEN, widx, salt64), 1)
-        u = u01_from_bits(ww.reshape(-1, N)[:1 + V])   # word k = call k//4, word k%4
-        return draw_gen, u[0:1], u[1:]
+        return (draw_gen,) + philox_wipe(seed, lane, salt64, i, V)
 
     return draw
+
+
+def philox_wipe(seed: int, lane, salt64, step: int, V: int):
+    """Step ``step``'s wipe coin ``(1, n)`` and restart genes ``(V, n)`` of
+    the lanes ``lane (1, n)`` (int64 lane indices, ``salt64`` their salts as
+    int64 32-bit values): words 0 and ``1 + v`` of draws 0, 1, … (four
+    words each) of generation word ``0xFFFFFFFF``, as :func:`philox_draw`
+    and the megastep kernel draw them."""
+    widx = torch.arange((V + 4) // 4, device=lane.device, dtype=torch.int64)[:, None]
+    ww = torch.stack(philox_words(seed, lane, step, _WIPE_GEN, widx, salt64), 1)
+    # word k = call k // 4, word k % 4
+    u = u01_from_bits(ww.reshape(-1, lane.shape[-1])[:1 + V])
+    return u[0:1], u[1:]
 
 
 def _branch_slots(link_i):

@@ -13,6 +13,12 @@ tensors; :class:`SpeciesKernel` is the wrapper a caller uses: on CUDA
 tensors it launches the hand-written kernel of ``csrc/species.cu``, on CPU
 tensors it runs the plain version.  There is no fallback between the two.
 
+Two randomness modes, as the megastep's: noise tensors from the caller (the
+TPU kernel's interface, in which the plain version is held to the JAX
+package's), or in-kernel Philox from ``(seed, step, salt)`` — the
+megastep's stream and mapping, whose plain version is
+``bio2_megastep.philox_draw``.
+
 With joint-space secondary goals (``sec_terms``, the packed :data:`SEC_ROWS`
 const from ``engine._secondary_rows``) each generation ranks the children by
 secondary fitness and keeps a random-count best prefix for the primary
@@ -28,8 +34,9 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["SpeciesParams", "SEC_ROWS", "SEC_TERMS", "_P", "make_sec_eval",
-           "preselect", "sec_term_mask", "make_species_inner", "SpeciesKernel",
-           "SPECIES_SHAPES", "species_flops_per_lane", "species_bytes_per_lane"]
+           "preselect", "sec_term_mask", "quat_mask", "make_species_inner", "SpeciesKernel",
+           "SPECIES_SHAPES", "species_flops_per_lane", "species_bytes_per_lane",
+           "species_philox_calls_per_lane"]
 
 _P = 2  # parents kept per species (reference: population_size=2, ik_evolution_2.cpp:137)
 
@@ -46,10 +53,20 @@ SEC_ROWS = ("alpha", "beta", "gamma", "delta", "tbar", "mid", "hspan",
             "seed")
 SEC_TERMS = ("alpha", "beta", "gamma", "delta")
 
-# (V, K) instances of csrc/species.cu (its SHAPES macro)
-SPECIES_SHAPES = ((10, 1), (5, 1))
+# (V, K, quaternion mask) instances of csrc/species.cu (its SHAPES macro):
+# free_arm (a floating joint's quaternion genes at slot 3: mask 8) and
+# planar_arm (none)
+SPECIES_SHAPES = ((10, 1, 8), (5, 1, 0))
 
 _MEMETIC_CODE = {"": 0, "q": 1, "l": 2}
+_RNG_CODE = {"clt4": 1, "box_muller": 2}   # csrc/species.cu rng_mode (0: tensors)
+_MAX_C = 16           # children per generation the kernel takes (MAX_C)
+
+
+def quat_mask(quat_slices) -> int:
+    """Bit ``s`` set for each quaternion gene block starting at slot ``s``
+    (the species kernel's instance parameter)."""
+    return sum(1 << s for s in quat_slices)
 
 
 def sec_term_mask(sec_terms) -> int:
@@ -150,15 +167,31 @@ def species_flops_per_lane(sp: SpeciesParams) -> int:
     return evals * (sp.K * 7 * sp.V * 2 + sp.K * 30)
 
 
-def species_bytes_per_lane(sp: SpeciesParams, sec_terms=()) -> int:
+def species_bytes_per_lane(sp: SpeciesParams, sec_terms=(),
+                           rng: str = "tensors") -> int:
     """Bytes per lane per launch, each input read once and each output
     written once: the TPU cost estimate's rows (bio2_step.py:472-473) plus
     the goal rows it leaves out (tips0, gpos, gquat, wpos, wrot: 16·K) and,
-    with ``sec_terms``, the keeps and the packed secondary rows."""
+    with ``sec_terms``, the packed secondary rows.  ``rng="tensors"``
+    counts the noise, rates (and keeps), ``rng="philox"`` the salt in their
+    place."""
     V, K = sp.V, sp.K
-    sec = sp.gens + len(SEC_ROWS) * V if sec_terms else 0
-    return 4 * (sp.gens * V * sp.C + sp.gens * sp.C + 4 * _P * V
-                + V * K * 7 + 3 * V + 16 * K + sec)
+    sec = len(SEC_ROWS) * V if sec_terms else 0
+    if rng == "tensors":
+        draws = sp.gens * V * sp.C + sp.gens * sp.C + (sp.gens if sec_terms else 0)
+    elif rng == "philox":
+        draws = 1
+    else:
+        raise ValueError(f"rng must be 'tensors' or 'philox', not {rng!r}")
+    return 4 * (draws + 4 * _P * V + V * K * 7 + 3 * V + 16 * K + sec)
+
+
+def species_philox_calls_per_lane(sp: SpeciesParams, gauss_mode: str = "clt4") -> int:
+    """Philox4x32-10 calls of one lane's draws in Philox mode: per generation
+    ``ceil(3V/4)`` per child (clt4; V for Box–Muller) and one for the rates
+    and keep — 1 032 at V = 10, C = 16, gens = 8 under clt4."""
+    per_child = (3 * sp.V + 3) // 4 if gauss_mode == "clt4" else sp.V
+    return sp.gens * (sp.C * per_child + 1)
 
 
 def make_species_inner(sp: SpeciesParams, sec_terms=()):
@@ -350,7 +383,9 @@ def _ptr(t):
 class SpeciesKernel:
     """The species step for one :class:`SpeciesParams` and set of secondary
     terms; call it on the ``(rows, N)`` tensors of :func:`make_species_inner`
-    (``keeps`` and ``sec`` last iff ``sec_terms``).
+    (``keeps`` and ``sec`` last iff ``sec_terms``), or, in Philox mode, on
+    the tensors up to ``cmax`` (and ``sec=``) with ``seed``, ``step`` and
+    ``salt`` in place of ``noise``, ``rates`` and ``keeps``.
 
     ``SpeciesKernel.launches`` counts CUDA kernel launches over all
     instances; it is incremented only where the CUDA kernel is launched.
@@ -372,24 +407,53 @@ class SpeciesKernel:
                      ("cmax", V))
 
     def __call__(self, genes, grads, tips0, deltas, gpos, gquat, wpos, wrot,
-                 span, cmin, cmax, noise, rates, keeps=None, sec=None):
-        """One species step; returns ``(genes', grads')``."""
-        if bool(self.sec_terms) != (keeps is not None and sec is not None):
+                 span, cmin, cmax, noise=None, rates=None, keeps=None, sec=None,
+                 *, seed=None, step: int = 0, salt=None, gauss_mode: str = "clt4"):
+        """One species step; returns ``(genes', grads')``.  Either ``noise``
+        and ``rates`` (and ``keeps`` with secondary terms), or ``seed``
+        (int), ``step`` (int) and ``salt`` ((1, N) int32) for the in-kernel
+        Philox draws of ``gauss_mode``."""
+        tensors = noise is not None
+        if tensors == (seed is not None) or (rates is not None) != tensors \
+                or (salt is not None) == tensors:
+            raise ValueError("pass noise and rates, or seed and salt (in-kernel "
+                             "Philox)")
+        if bool(self.sec_terms) != (sec is not None) \
+                or (keeps is not None) != (tensors and bool(self.sec_terms)):
             raise ValueError("pass keeps and sec exactly when the step has "
-                             "secondary terms")
+                             "secondary terms (keeps only with noise tensors)")
+        if gauss_mode not in _RNG_CODE:
+            raise ValueError(f"gauss_mode must be one of {tuple(_RNG_CODE)}")
         args = (genes, grads, tips0, deltas, gpos, gquat, wpos, wrot, span,
-                cmin, cmax, noise, rates)
-        if self.sec_terms:
-            args += (keeps, sec)
+                cmin, cmax)
         dev = genes.device
         if dev.type == "cpu":
-            return self.inner(*args)
+            if not tensors:
+                noise, rates, keeps = self.philox_tensors(seed, step, salt,
+                                                          gauss_mode)
+            return self.inner(*args, noise, rates,
+                              *((keeps, sec) if self.sec_terms else ()))
         if dev.type == "cuda":
-            return self._launch(args)
+            return self._launch(args, noise, rates, keeps, sec, seed, step, salt,
+                                gauss_mode)
         raise ValueError(f"the species step runs on cuda or cpu tensors, not {dev}")
 
+    def philox_tensors(self, seed: int, step: int, salt, gauss_mode: str = "clt4"):
+        """``(noise (gens, V, C, N), rates (gens, C, N), keeps (gens, 1, N) or
+        None)``: the draws the kernel makes in Philox mode, those of
+        :func:`bio2_megastep.philox_draw` for each generation (drawn for all
+        generations at once)."""
+        from .bio2_megastep import philox_draw
+
+        sp = self.sp
+        draw_gen = philox_draw(int(seed), salt, sp.V, sp.C, gauss_mode,
+                               keep=bool(self.sec_terms))(step)[0]
+        gens = torch.arange(sp.gens, dtype=torch.int64, device=salt.device)[:, None, None]
+        out = draw_gen(gens)
+        return out[0], out[1], out[2] if self.sec_terms else None
+
     # ------------------------------------------------------------------
-    def _launch(self, args):
+    def _launch(self, args, noise, rates, keeps, sec, seed, step, salt, gauss_mode):
         from .build import load
 
         sp = self.sp
@@ -397,45 +461,53 @@ class SpeciesKernel:
         dev = genes.device
         N = genes.shape[-1]
 
-        def check(t, shape, name):
-            if t.device != dev or t.dtype != torch.float32 \
+        def check(t, shape, name, dtype=torch.float32):
+            if t.device != dev or t.dtype != dtype \
                     or not t.is_contiguous() or tuple(t.shape) != shape:
                 raise ValueError(
-                    f"{name}: want a contiguous float32 {shape} tensor on "
+                    f"{name}: want a contiguous {dtype} {shape} tensor on "
                     f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
         for t, (name, r) in zip(args, self.rows):
             check(t, (r, N), name)
-        check(args[11], (sp.gens, sp.V, sp.C, N), "noise")
-        check(args[12], (sp.gens, sp.C, N), "rates")
-        if self.sec_terms:
-            check(args[13], (sp.gens, 1, N), "keeps")
-            check(args[14], (8 * sp.V, N), "sec")
-            keeps, sec = args[13], args[14]
+        if sp.C > _MAX_C:
+            raise ValueError(f"{sp.C} children exceed the kernel's {_MAX_C}")
+        if noise is not None:
+            check(noise, (sp.gens, sp.V, sp.C, N), "noise")
+            check(rates, (sp.gens, sp.C, N), "rates")
+            if self.sec_terms:
+                check(keeps, (sp.gens, 1, N), "keeps")
+            rng_mode, seed, salt = 0, 0, genes                   # salt unread
         else:
-            keeps = sec = genes                          # unread
+            check(salt, (1, N), "salt", torch.int32)
+            rng_mode = _RNG_CODE[gauss_mode]
+            noise = rates = genes                                # unread
+        if self.sec_terms:
+            check(sec, (8 * sp.V, N), "sec")
+        keeps = genes if keeps is None else keeps                # unread
+        sec = genes if sec is None else sec                      # unread
 
         lib = load("species")
-        lib.species_has_shape.argtypes = [ctypes.c_int] * 2
+        lib.species_has_shape.argtypes = [ctypes.c_int] * 2 + [ctypes.c_uint]
         lib.species_has_shape.restype = ctypes.c_int
-        if not lib.species_has_shape(sp.V, sp.K):
+        qmask = quat_mask(sp.quat_slices)
+        if not lib.species_has_shape(sp.V, sp.K, qmask):
             raise ValueError(
                 f"the species kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K} (SHAPES in csrc/species.cu; ROADMAP.md, port "
-                "queue item 9)")
-        qmask = 0
-        for s in sp.quat_slices:
-            qmask |= 1 << s
+                f"K={sp.K}, quaternion mask {qmask} (SHAPES in csrc/species.cu; "
+                "ROADMAP.md, port queue item 9)")
         genes_o, grads_o = torch.empty_like(genes), torch.empty_like(genes)
         fn = lib.species_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_uint,
-                                            ctypes.c_uint]
-                       + [ctypes.c_void_p] * 18)
+                                            ctypes.c_uint, ctypes.c_int,
+                                            ctypes.c_uint, ctypes.c_int]
+                       + [ctypes.c_void_p] * 19)
         rc = fn(sp.V, sp.K, N, sp.gens, sp.C, sp.mem_iters,
-                _MEMETIC_CODE[sp.memetic], sp.h, qmask, self.sec_mask,
-                *(_ptr(t) for t in args[:13]), _ptr(keeps), _ptr(sec),
-                _ptr(genes_o), _ptr(grads_o),
+                _MEMETIC_CODE[sp.memetic], sp.h, qmask, self.sec_mask, rng_mode,
+                int(seed) & 0xFFFFFFFF, int(step), _ptr(salt),
+                *(_ptr(t) for t in args), _ptr(noise), _ptr(rates), _ptr(keeps),
+                _ptr(sec), _ptr(genes_o), _ptr(grads_o),
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
             raise RuntimeError(f"species launch failed: CUDA error {rc}")

@@ -28,7 +28,7 @@ import time
 from typing import Dict, Sequence
 
 __all__ = ["build", "build_all", "load", "ptxas_report", "ptxas_table",
-           "BUILD_DIR", "CSRC"]
+           "ptxas_rows", "BUILD_DIR", "CSRC"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -128,11 +128,17 @@ _PTXAS_NUM = {"stack": re.compile(r"(\d+) bytes stack frame"),
 
 
 def ptxas_table(name: str):
-    """One row per kernel of the last build's ``-Xptxas -v`` report:
-    ``{"entry", "registers", "stack", "spill_stores", "spill_loads"}``, the
-    entry demangled with the toolkit's ``cu++filt`` where it is found."""
+    """One row per kernel of the last build's ``-Xptxas -v`` report
+    (:func:`ptxas_rows`)."""
+    return ptxas_rows(ptxas_report(name))
+
+
+def ptxas_rows(log: str):
+    """One row per kernel of an ``-Xptxas -v`` log: ``{"entry",
+    "registers", "stack", "spill_stores", "spill_loads"}``, the entry
+    demangled with the toolkit's ``cu++filt`` where it is found."""
     rows = []
-    for line in ptxas_report(name).splitlines():
+    for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
             rows.append({"entry": m.group(1)})

@@ -126,7 +126,7 @@ def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
 
 
 def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
-                   spread: float = 1e-3, sec_terms=()):
+                   spread: float = 1e-3, sec_terms=(), philox: bool = False):
     """numpy arguments of one species step (:class:`SpeciesKernel` order)
     on ``N`` lanes of ``model``/``tip`` with every variable active (K = 1),
     made from ``seed``: a solve under way as in :func:`megastep_inputs` —
@@ -136,7 +136,14 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
     weights of bench.py's goal (so both fitness terms are exercised), the
     model's bounds, and noise and rates with the real rate ladder; with
     ``sec_terms`` also ``keeps (gens, 1, N)`` and the packed secondary rows
-    (:func:`sec_rows`), drawn after everything else."""
+    (:func:`sec_rows`), drawn after everything else.
+
+    With ``philox`` (the kernel's in-kernel Philox mode) the result is
+    ``(args, kw)``: ``args`` up to ``cmax`` (no noise, rates or keeps) and
+    ``kw = {"salt": (1, N) int32}`` (one random salt per species pair) and,
+    with ``sec_terms``, ``kw["sec"]``, the packed secondary rows, both
+    drawn after the lane state: the keyword arguments of the call with
+    ``seed`` and ``step``."""
     from ..kinematics import make_fk, make_linearizer
 
     V, K = sp.V, sp.K
@@ -162,7 +169,6 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
     def rows(x):
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
 
-    k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
     args = (
         genes,
         (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
@@ -173,9 +179,17 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
         np.ones((K, N), f32),
         np.full((K, N), 0.25, f32),
         rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
-        rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
-        np.exp2(k - 23.0).astype(f32),
     )
+    if philox:
+        salt = np.repeat(rng.integers(-2 ** 31, 2 ** 31, size=(N + 1) // 2),
+                         2)[:N].astype(np.int32)[None]
+        kw = {"salt": salt}
+        if sec_terms:
+            kw["sec"] = sec_rows(model, sec_terms, N, rng)
+        return args, kw
+    k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
+    args += (rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
+             np.exp2(k - 23.0).astype(f32))
     if sec_terms:
         args += (rng.uniform(size=(sp.gens, 1, N)).astype(f32),
                  sec_rows(model, sec_terms, N, rng))

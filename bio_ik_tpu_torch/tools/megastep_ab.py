@@ -13,14 +13,15 @@ with CUDA events in one process on one card, in the order given:
   * ``change`` — ``csrc/megastep.cu`` through ``Megastep`` at the group
     size the wrapper chooses;
   * ``parent`` — the previous version of the source, from ``--parent DIR``
-    holding its ``megastep.cu`` and ``sec_eval.cuh``.  It is launched
-    through the C API of version 1 (one thread per lane, no group size:
-    ``megastep_launch(V, K, T, N, nlinks, n_steps, …)`` with 6-int link
-    rows), the list before ``megastep_abi_version`` existed; a build that
-    exports that symbol is refused, as its list may differ.
+    holding its ``megastep.cu`` and headers.  It is launched through the
+    C API of version 2 (``megastep_abi_version() == 2``, the change's own
+    argument list, at the group size the wrapper's rule picks from the
+    parent build's occupancy); a build of another version is refused, as
+    its list differs.
 
-Prints one JSON line per (shape, version) and a summary line.  The parent source is a measuring
-aid only: nothing on a solve path loads it.
+Prints one JSON line per (shape, version), a summary line, and both
+builds' ``-Xptxas -v`` rows (registers, stack, spill per kernel).  The
+parent source is a measuring aid only: nothing on a solve path loads it.
 
 Usage (on the card)::
 
@@ -40,9 +41,11 @@ import torch
 
 from bio_ik_tpu_torch import RobotModel, asset_path
 from bio_ik_tpu_torch.interop import tree_from_numpy
-from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep, _MEMETIC_CODE, _ptr
+from bio_ik_tpu_torch.kernels.bio2_megastep import (GROUPS, Megastep, _MEMETIC_CODE,
+                                                    _ptr, choose_group)
 from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
-from bio_ik_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, _nvcc, build_all
+from bio_ik_tpu_torch.kernels.build import (BUILD_DIR, NVCC_FLAGS, _nvcc, build_all,
+                                            ptxas_rows, ptxas_table)
 from bio_ik_tpu_torch.kernels.checks import megastep_inputs
 
 TIP = "r_gripper_tool_frame"
@@ -62,27 +65,30 @@ def ladder(phases, fractions):
 
 
 def parent_launch(lib, mega, state, consts, seed, salt):
-    """One launch of the parent's kernel (C API version 1) on the same state."""
+    """One launch of the parent's megastep (C API version 2) on the same
+    state, at the group size the wrapper chooses from the parent's
+    occupancy."""
     sp = mega.sp
     dev = state[0].device
     N = state[0].shape[-1]
+    if not hasattr(mega, "parent_group"):
+        mega.parent_group = choose_group(N, {g: mega.resident_blocks(lib, dev, g)
+                                             for g in GROUPS if sp.C % g == 0}, sp.C)
+    G = mega.parent_group
     chain_i, chain_f, tip_slot, inst_tip = mega._chain_on(dev)
-    if not hasattr(mega, "parent_chain"):   # version 1's 6-int link rows
-        mega.parent_chain = chain_i[:, :6].contiguous()
-    chain_i6 = mega.parent_chain
     out = tuple(torch.empty_like(t) for t in state)
     sec = consts[10] if mega.sec_terms else state[0]
     unread = state[0]
     fn = lib.megastep_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+    fn.argtypes = ([ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
                                          ctypes.c_uint] + [ctypes.c_void_p] * 34)
-    rc = fn(sp.V, sp.K, mega.T, N, chain_i.shape[0], mega.n_steps, sp.gens, sp.C,
-            sp.mem_iters, _MEMETIC_CODE[sp.memetic], sp.h, 1, seed, mega.sec_mask,
-            _ptr(salt), *(_ptr(t) for t in state), *(_ptr(t) for t in out),
-            *(_ptr(t) for t in consts[:10]), _ptr(sec), *([_ptr(unread)] * 5),
-            _ptr(chain_i6), _ptr(chain_f), _ptr(tip_slot), _ptr(inst_tip),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    rc = fn(sp.V, sp.K, mega.T, G, N, chain_i.shape[0], mega.nbranch, mega.n_steps,
+            sp.gens, sp.C, sp.mem_iters, _MEMETIC_CODE[sp.memetic], sp.h, 1, seed,
+            mega.sec_mask, _ptr(salt), *(_ptr(t) for t in state),
+            *(_ptr(t) for t in out), *(_ptr(t) for t in consts[:10]), _ptr(sec),
+            *([_ptr(unread)] * 5), _ptr(chain_i), _ptr(chain_f), _ptr(tip_slot),
+            _ptr(inst_tip), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"parent megastep launch failed: CUDA error {rc}")
     return out
@@ -102,7 +108,8 @@ def cuda_ms(fn, reps):
 
 def load_parent(src_dir):
     """Build the parent's ``megastep.cu`` (alongside the change's build) and
-    load it; raises unless it speaks the C API of version 1."""
+    load it; returns ``(CDLL, ptxas rows)``, or exits unless it speaks the
+    C API of version 2."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, "libmegastep_parent.so")
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", out,
@@ -113,11 +120,11 @@ def load_parent(src_dir):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the parent source:\n{log[-8000:]}")
     lib = ctypes.CDLL(out)
-    if hasattr(lib, "megastep_abi_version"):
-        raise SystemExit(f"megastep_ab: the parent exports megastep_launch of version "
-                         f"{lib.megastep_abi_version()}; this tool launches only "
-                         "version 1")
-    return lib
+    version = lib.megastep_abi_version() if hasattr(lib, "megastep_abi_version") else 1
+    if version != 2:
+        raise SystemExit(f"megastep_ab: the parent's megastep_launch is of version "
+                         f"{version}; this tool launches version 2")
+    return lib, ptxas_rows(log)
 
 
 def main():
@@ -136,7 +143,7 @@ def main():
         raise SystemExit("megastep_ab: --order takes parent and change, parent "
                          "only with --parent")
     dev = torch.device("cuda")
-    parent = load_parent(args.parent) if args.parent else None
+    parent, parent_rows = load_parent(args.parent) if args.parent else (None, None)
     model = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device=dev)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -169,6 +176,7 @@ def main():
                       for label, t in totals.items()},
           "note": "ms per ladder (the sum over its 4 launch shapes) of each "
                   "entry of --order, in turn", "gpu": gpu})
+    emit({"ptxas": "megastep", "change": ptxas_table("megastep"), "parent": parent_rows})
 
 
 if __name__ == "__main__":

@@ -41,25 +41,32 @@ non-zero:
                     B = 65 536: the same fields, the median secondary fitness
                     beside a pose-only solve of the same targets, and
                     IKSolver.for_tips building the same problem;
-  species_check   — species kernel vs plain version (free_arm at 524 288
-                    lanes, planar_arm at 131 072): bitwise, by stage, and
-                    the CPU-vs-card floor;
+  species_check   — species kernel vs plain version in both randomness
+                    modes (noise tensors; in-kernel Philox against
+                    make_species_inner on philox_draw's tensors): free_arm
+                    at 524 288 lanes, planar_arm at 131 072, the
+                    secondary-goal instance at 131 072, bitwise under CLT4;
+                    Box–Muller by lane agreement beside its CPU-vs-card
+                    floor; by stage, and the noise-tensor floor;
   species_main    — the JAX suite's free_arm_floating_base row at B = 65 536,
                     then planar_arm at B = 16 384: the main fields (16
                     launches), unit quaternions, peak memory;
   species_sec_main — free_arm with the two regularizers at B = 16 384;
   times           — every kernel instance at its paths' launch shapes (CUDA
                     events; the megastep at the 8 ladder launches with the
-                    G chosen and every G) beside its plain version, its
-                    FLOP/byte bound and, for the megastep, the bound of the
-                    generator's integer work beside it (its Philox calls,
-                    one call's SASS counted, at the card's IMAD, ALU and
-                    issue rates);
+                    G chosen and every G; the species kernel in both modes
+                    with registers, spill and resident blocks) beside its
+                    plain version, its FLOP/byte bound and the bound of the
+                    generator's integer work (its Philox calls, one call's
+                    SASS counted, at the card's IMAD, ALU and issue rates);
   profile         — torch.profiler over one solve_batch of each path: device
-                    time by kernel, device busy and idle share;
+                    time by kernel, device busy and idle share; no torch
+                    random-number kernel on the species paths;
   mfu             — ``python -m bio_ik_tpu_torch.tools.bench_mfu``'s
                     measurements; the peak kernel bitwise vs its plain
-                    version at T = 64.
+                    version at T = 64, its bound from 3 unfused FP32
+                    instructions per iteration (held against the SASS of
+                    its loop).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -97,6 +104,10 @@ PEAK_BYTES = 3.35e12
 IMAD_PER_SM_CLK = 64
 ALU_PER_SM_CLK = 64
 ISSUE_PER_SM_CLK = 128
+# FP32 instructions per SM and clock (4 × 32 lanes): an unfused multiply or
+# add is one FLOP, so kernels built without FMA (species, peak) reach at
+# most half the FMA-counted PEAK_FP32
+FP32_PER_SM_CLK = 128
 SOURCES = ("megastep", "species", "peak")
 # the reference's recommended configuration (tools/bench_suite.py:198-210):
 # PoseGoal + MinimalDisplacementGoal(0.05) + AvoidJointLimitsGoal(0.05)
@@ -176,6 +187,31 @@ def philox_sass_count():
         raise AssertionError(f"no Philox probe kernels in the SASS: {list(counts)}")
     return {"instructions": probe[0]["all"] - base[0]["all"],
             "imad": probe[0]["imad"] - base[0]["imad"]}
+
+
+def peak_sass_loops():
+    """The FP32 instructions in each loop of the peak kernel's SASS (the
+    instructions from a backward branch's target to the branch): FMUL,
+    FADD and FFMA counts per loop, innermost first."""
+    from bio_ik_tpu_torch.kernels.build import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build("peak")], capture_output=True,
+                          text=True, timeout=300).stdout
+    ins = []
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)",
+                     line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, rest in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if t and int(t.group(1), 16) < addr:
+            body = [o for a, o, _ in ins if int(t.group(1), 16) <= a <= addr]
+            loops.append({k: sum(o.startswith(k) for o in body)
+                          for k in ("FMUL", "FADD", "FFMA")})
+    return sorted(loops, key=lambda x: sum(x.values()))
 
 
 def max_sm_clock_hz():
@@ -574,9 +610,11 @@ class Smoke:
 
     # -------------------------------------------------------------- 5 --
     def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None,
-                      sec_terms=()):
+                      sec_terms=(), philox=False):
         """A SpeciesKernel of the robot's species path and one step's
-        arguments on ``N`` lanes (kernels/checks.species_inputs)."""
+        arguments on ``N`` lanes (kernels/checks.species_inputs): the
+        noise-tensor arguments, or with ``philox`` ``(args, kw)`` for the
+        in-kernel Philox mode (``kw``: salt, sec)."""
         from bio_ik_tpu_torch.interop import tree_from_numpy
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel, SpeciesParams
         from bio_ik_tpu_torch.kernels.checks import species_inputs
@@ -585,40 +623,73 @@ class Smoke:
         model = self.sp_cpu_models[urdf]
         sp = SpeciesParams(V=model.nvars, K=1, gens=gens, mem_iters=mem_iters,
                            memetic=memetic, quat_slices=qs)
-        args = species_inputs(model, "tool", sp, N, sec_terms=sec_terms)
+        args = species_inputs(model, "tool", sp, N, sec_terms=sec_terms, philox=philox)
         return SpeciesKernel(sp, sec_terms), tree_from_numpy(args, dev or self.dev)
 
+    @staticmethod
+    def _species_philox_plain(kern, args, kw, seed, step, gauss_mode="clt4"):
+        """The plain version of a Philox-mode species step: make_species_inner
+        on the draws of bio2_megastep.philox_draw (SpeciesKernel.philox_tensors)."""
+        noise, rates, keeps = kern.philox_tensors(seed, step, kw["salt"], gauss_mode)
+        extra = (keeps, kw["sec"]) if kern.sec_terms else ()
+        return kern.inner(*args, noise, rates, *extra)
+
     def species_check(self):
+        """The species kernel against its plain version in both randomness
+        modes: free_arm at 524 288 lanes, planar_arm at 131 072 and the
+        secondary-goal instance (the regularizers' terms, free_arm) at
+        131 072 — bitwise under CLT4 and with noise tensors; Box–Muller
+        (logf/cosf) by lane agreement (≥ 0.999, just under the floor of the
+        plain version on the CPU against itself on the card: 0.99994 on an
+        H100) beside that floor; the noise-tensor
+        floor and agreement by stage as before."""
         import torch
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
 
         out = {"phase": "species_check"}
-        for urdf, B, _ in SPECIES_PATHS:
-            N = B * SPECIES_ISLANDS * 2
-            kern, args = self._species_args(urdf, N)
+        shapes = [(urdf, B * SPECIES_ISLANDS * 2, ()) for urdf, B, _ in SPECIES_PATHS] + [
+            (SPECIES_PATHS[0][0], B_SPECIES_SEC * SPECIES_ISLANDS * 2, REG_TERMS)]
+        bitwise, errs = {}, []
+        for urdf, N, terms in shapes:
+            label = urdf.split(".")[0] + ("_regularized" if terms else "")
+            row = {"lanes": N, "sec_terms": terms}
+            kern, args = self._species_args(urdf, N, sec_terms=terms)
             k_out = kern(*args)
             p_out = kern.inner(*args)
             torch.cuda.synchronize()
             agree = lane_agreement(k_out, p_out)
-            frac = float(agree.float().mean())
-            err = max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out))
-            out[urdf] = {"lanes": N, "agree_frac": frac,
-                         "agree_max_abs_err": err,
-                         "bitwise_frac": float(torch.stack(
-                             [(a == b).reshape(-1, N).all(0)
-                              for a, b in zip(k_out, p_out)]).all(0)
-                             .float().mean())}
-            if urdf == SPECIES_PATHS[0][0]:
-                self.kernels["species"].update(agree_frac=frac, max_abs_err=err)
+            row.update(noise_tensor_agree_frac=float(agree.float().mean()),
+                       noise_tensor_bitwise_frac=bitwise_frac(k_out, p_out, N))
+            errs.append(max(max_abs_err(a, b) for a, b in zip(k_out, p_out)))
             del args, k_out, p_out
-            if frac < 0.85:
-                emit(out)
-                raise AssertionError(f"species kernel agrees with the plain "
-                                     f"version on {frac:.3f} of lanes of "
-                                     f"{urdf} (< 0.85)")
-        # the floor between two correct versions: the plain version on the
-        # CPU against itself on the card (4 096 lanes)
+            kern, (args, kw) = self._species_args(urdf, N, sec_terms=terms, philox=True)
+            k_out = kern(*args, seed=2024, step=5, **kw)
+            p_out = self._species_philox_plain(kern, args, kw, 2024, 5)
+            torch.cuda.synchronize()
+            row["philox_bitwise_frac"] = bitwise_frac(k_out, p_out, N)
+            errs.append(max(max_abs_err(a, b) for a, b in zip(k_out, p_out)))
+            bitwise[label] = min(row["noise_tensor_bitwise_frac"],
+                                 row["philox_bitwise_frac"])
+            out[label] = row
+            del args, kw, k_out, p_out
+            torch.cuda.empty_cache()
+        # Box–Muller: the kernel's logf/cosf against torch's, 65 536 lanes,
+        # beside the plain version on the CPU against itself on the card
         urdf = SPECIES_PATHS[0][0]
+        kern, (args, kw) = self._species_args(urdf, 65536, philox=True)
+        k_bm = kern(*args, seed=2024, step=5, gauss_mode="box_muller", **kw)
+        p_bm = self._species_philox_plain(kern, args, kw, 2024, 5, "box_muller")
+        c_bm = self._species_philox_plain(kern, [a.cpu() for a in args],
+                                          {k: v.cpu() for k, v in kw.items()},
+                                          2024, 5, "box_muller")
+        bm = {"lanes": 65536,
+              "agree_frac": float(lane_agreement(k_bm, p_bm).float().mean()),
+              "plain_cpu_vs_card_agree_frac": float(lane_agreement(c_bm, p_bm)
+                                                    .float().mean())}
+        out["box_muller"] = bm
+        del args, kw, k_bm, p_bm, c_bm
+        # the floor between two correct versions: the plain version on the
+        # CPU against itself on the card (4 096 lanes, noise tensors)
         kern, cargs = self._species_args(urdf, 4096, dev="cpu")
         c_out = kern.inner(*cargs)
         g_out = kern.inner(*(a.to(self.dev) for a in cargs))
@@ -634,6 +705,15 @@ class Smoke:
                                   .float().mean())
         out["agree_by_stage"] = stages
         emit(out)
+        self.kernels["species"].update(
+            agree_frac=min(bitwise.values()), bitwise_frac_by_instance=bitwise,
+            box_muller_agree_frac=bm["agree_frac"], max_abs_err=max(errs))
+        if min(bitwise.values()) < 1.0:
+            raise AssertionError(f"the species kernel is not bitwise its plain "
+                                 f"version on every lane: {bitwise}")
+        if bm["agree_frac"] < 0.999:
+            raise AssertionError(f"Box–Muller species kernel agrees on "
+                                 f"{bm['agree_frac']:.5f} of lanes (< 0.999)")
 
     # -------------------------------------------------------------- 6 --
     def _species_bench(self, urdf, B, regularized=False):
@@ -799,9 +879,13 @@ class Smoke:
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
         busy_us = sum(dev_us(e) for e in ev)
         top = sorted(ev, key=lambda e: -dev_us(e))[:10]
+        # torch's random-number kernels (torch.randint and the like)
+        rng = [e for e in ev if "distribution" in e.key or "philox" in e.key.lower()]
         return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
                 "device_idle_share": 1.0 - busy_us / wall_us,
                 "device_ops": len(ev),
+                "torch_rng_kernels": sum(e.count for e in rng),
+                "torch_rng_ms": sum(dev_us(e) for e in rng) / 1e3,
                 "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                          "count": e.count} for e in top]}
 
@@ -813,16 +897,36 @@ class Smoke:
                                           REG_FRACTIONS, regularized=True)
         emit({"phase": "profile", "path": "regularized",
               **self._profile(s, data, keys)})
+        # the species paths draw in the kernel: no torch random-number kernel
         urdf, B, _ = SPECIES_PATHS[0]
-        s, data, keys, _, _ = self._species_bench(urdf, B)
-        emit({"phase": "profile", "path": "species", "robot": urdf, "batch": B,
-              **self._profile(s, data, keys)})
-        del s, data, keys
-        s, data, keys, _, _ = self._species_bench(urdf, B_SPECIES_SEC, True)
-        emit({"phase": "profile", "path": "species_regularized", "robot": urdf,
-              "batch": B_SPECIES_SEC, **self._profile(s, data, keys)})
+        rng = []
+        for path, batch, reg in (("species", B, False),
+                                 ("species_regularized", B_SPECIES_SEC, True)):
+            s, data, keys, _, _ = self._species_bench(urdf, batch, reg)
+            out = self._profile(s, data, keys)
+            emit({"phase": "profile", "path": path, "robot": urdf, "batch": batch, **out})
+            rng.append(out["torch_rng_kernels"])
+            del s, data, keys
+        if any(rng):
+            raise AssertionError(f"torch random-number kernels on the species paths: {rng}")
 
     # -------------------------------------------------------------- 7 --
+    def _philox_clocks(self):
+        """(SM clocks of one Philox call — one call's SASS counted, at the
+        larger of the IMAD pipe's, the ALU pipe's and the issue limit's
+        time —, SM clocks per second of the card: SMs × max SM clock)."""
+        import torch
+
+        if not hasattr(self, "philox_sass"):
+            self.philox_sass = philox_sass_count()
+        sass = self.philox_sass
+        clocks_per_call = max(sass["imad"] / IMAD_PER_SM_CLK,
+                              (sass["instructions"] - sass["imad"]) / ALU_PER_SM_CLK,
+                              sass["instructions"] / ISSUE_PER_SM_CLK)
+        sm_clocks = (max_sm_clock_hz()
+                     * torch.cuda.get_device_properties(self.dev).multi_processor_count)
+        return clocks_per_call, sm_clocks
+
     def _mega_rows(self, shapes, sec_terms=()):
         """The megastep (in-kernel Philox) at each (lanes, n_steps) launch
         shape, CUDA events: at the group size G the wrapper chooses and at
@@ -836,14 +940,7 @@ class Smoke:
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
             GROUPS, megastep_flops_per_lane, philox_calls_per_lane_step)
 
-        if not hasattr(self, "philox_sass"):
-            self.philox_sass = philox_sass_count()
-        sass = self.philox_sass
-        clocks_per_call = max(sass["imad"] / IMAD_PER_SM_CLK,
-                              (sass["instructions"] - sass["imad"]) / ALU_PER_SM_CLK,
-                              sass["instructions"] / ISSUE_PER_SM_CLK)
-        sm_clocks = (max_sm_clock_hz()
-                     * torch.cuda.get_device_properties(self.dev).multi_processor_count)
+        clocks_per_call, sm_clocks = self._philox_clocks()
         rows = []
         for N, steps in shapes:
             row = {"lanes": N, "n_steps": steps}
@@ -936,41 +1033,85 @@ class Smoke:
         self._species_times()
 
     def _species_times(self):
-        """The species kernel at each species path's launch shape (CUDA
-        events, 10 launches) and its plain version (one launch), beside the
-        bound from the TPU cost model's counts."""
+        """The species kernel at each species path's launch shape in both
+        randomness modes (CUDA events, 10 launches) and its plain version in
+        Philox mode (one launch), beside its bounds: ``bound_ms``, the larger
+        of the bytes (each input read once, each output written once) and
+        the FP32 work (the TPU cost model's FLOPs, one unfused instruction
+        each at the card's 128 FP32 instructions per SM and clock: the kernel
+        is built -fmad=false), and ``int_bound_ms``, the Philox calls alone
+        (as the megastep's); with registers, spill and resident blocks."""
+        import ctypes
+
         import torch
         from bio_ik_tpu_torch.kernels.bio2_step import (
-            species_bytes_per_lane, species_flops_per_lane)
+            quat_mask, species_bytes_per_lane, species_flops_per_lane,
+            species_philox_calls_per_lane)
+        from bio_ik_tpu_torch.kernels.build import load, ptxas_table
 
+        int_clocks, sm_clocks = self._philox_clocks()
+        fp32_rate = FP32_PER_SM_CLK * sm_clocks
+        lib = load("species")
+        lib.species_smem_bytes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint]
+        lib.species_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_uint] + [
+            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        ptx = {r["entry"]: r for r in ptxas_table("species")}
         rows = []
         for urdf, B, terms in [(u, b, ()) for u, b, _ in SPECIES_PATHS] + [
                 (SPECIES_PATHS[0][0], B_SPECIES_SEC, REG_TERMS)]:
             N = B * SPECIES_ISLANDS * 2
-            kern, args = self._species_args(urdf, N, sec_terms=terms)
-            run = lambda: kern(*args)  # noqa: E731
+            kern, (args, kw) = self._species_args(urdf, N, sec_terms=terms, philox=True)
+            sp = kern.sp
+            row = {"robot": urdf, "sec_terms": terms, "lanes": N, "V": sp.V}
+            for mode, run in (("ms", lambda: kern(*args, seed=99, step=0, **kw)),
+                              ("plain_ms", lambda: self._species_philox_plain(
+                                  kern, args, kw, 99, 0))):
+                run()
+                torch.cuda.synchronize()
+                row[mode] = cuda_ms(run, 10 if mode == "ms" else 1)
+            del args, kw
+            kern, targs = self._species_args(urdf, N, sec_terms=terms)
+            run = lambda: kern(*targs)  # noqa: E731
             run()
             torch.cuda.synchronize()
-            ms = cuda_ms(run, 10)
-            kern.inner(*args)
-            torch.cuda.synchronize()
-            plain_ms = cuda_ms(lambda: kern.inner(*args), 1)
-            flops = species_flops_per_lane(kern.sp) * N
-            nbytes = species_bytes_per_lane(kern.sp, terms) * N
-            ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-            rows.append({"robot": urdf, "sec_terms": terms, "lanes": N,
-                         "V": kern.sp.V, "ms": ms,
-                         "plain_ms": plain_ms, "gflop": flops / 1e9,
-                         "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
-                         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                         "achieved_gb_s": nbytes / ms / 1e6})
-            del args
+            row["noise_tensor_ms"] = cuda_ms(run, 10)
+            del targs
+            torch.cuda.empty_cache()
+            flops = species_flops_per_lane(sp) * N
+            ops_ms = flops / fp32_rate * 1e3
+            calls = species_philox_calls_per_lane(sp) * N
+            for mode in ("philox", "tensors"):
+                nbytes = species_bytes_per_lane(sp, terms, rng=mode) * N
+                bytes_ms = nbytes / PEAK_BYTES * 1e3
+                pre = "" if mode == "philox" else "noise_tensor_"
+                row.update({pre + "bytes": nbytes, pre + "bound_ms": max(ops_ms, bytes_ms),
+                            pre + "bound_by": ("bytes" if bytes_ms > ops_ms
+                                               else "operations")})
+            smem = lib.species_smem_bytes(sp.V, sp.K, sp.C, kern.sec_mask)
+            blocks = ctypes.c_int(0)
+            lib.species_blocks_per_sm(sp.V, sp.K, quat_mask(sp.quat_slices),
+                                      int(bool(terms)), 1, smem, ctypes.byref(blocks))
+            entry = re.compile(rf"void species_kernel<\(int\){sp.V}, \(int\){sp.K}, .*"
+                               rf"\(bool\){int(bool(terms))}, \(int\)1>")      # clt4
+            rows_ptx = [r for e, r in ptx.items() if entry.match(e)]
+            row.update(gflop=flops / 1e9, fp32_bound_ms=ops_ms, philox_calls=calls,
+                       int_bound_ms=calls * int_clocks / sm_clocks * 1e3,
+                       smem_bytes=smem, blocks_per_sm=blocks.value,
+                       ptxas={k: v for k, v in (rows_ptx[0] if rows_ptx else {}).items()
+                              if k != "entry"},
+                       ns_per_lane=row["ms"] * 1e6 / N)
+            rows.append(row)
         emit({"phase": "times", "species": rows, "gpu": smi_line()})
         r0 = rows[0]
         self.kernels["species"].update(
             ms=r0["ms"], plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
-            bound_by=r0["bound_by"], regularized_ms=rows[-1]["ms"])
-
+            bound_by=r0["bound_by"], int_bound_ms=r0["int_bound_ms"],
+            noise_tensor_ms=r0["noise_tensor_ms"],
+            noise_tensor_bound_ms=r0["noise_tensor_bound_ms"],
+            registers=r0["ptxas"].get("registers"),
+            spill_stores=r0["ptxas"].get("spill_stores", 0),
+            regularized_ms=rows[-1]["ms"],
+            regularized_noise_tensor_ms=rows[-1]["noise_tensor_ms"])
 
     # ------------------------------------------------------------ sec --
     def sec_check(self):
@@ -1189,7 +1330,13 @@ class Smoke:
             0.2, 0.8, size=(R, W * G_)).astype(np.float32), device=self.dev)
         peak_chains_plain(xs, 4, W)
         plain_ms = cuda_ms(lambda: peak_chains_plain(xs, T, W), 1)
-        bound = peak_flops(R, W * G_, T) / PEAK_FP32 * 1e3
+        # the bound: 3 unfused FP32 instructions per iteration and chain
+        # (peak_flops; held against the SASS of the loop) at 128 per SM and
+        # clock, beside the FMA-counted data-sheet time
+        _, sm_clocks = self._philox_clocks()
+        loops = peak_sass_loops()
+        bound = peak_flops(R, W * G_, T) / (FP32_PER_SM_CLK * sm_clocks) * 1e3
+        fma_bound = peak_flops(R, W * G_, T) / PEAK_FP32 * 1e3
         bitwise, errs = {}, []
         for t in bench_mfu.PEAK_T:
             k, p = PeakChains()(xs, t, W), peak_chains_plain(xs, t, W)
@@ -1201,12 +1348,18 @@ class Smoke:
                                                   peak_chains_plain(x, 64, 512)))
         emit({"phase": "mfu", **res, "peak_bitwise": bitwise,
               "peak_max_abs_err": max(errs), "peak_launches": launches,
-              "peak_plain_ms_T1024": plain_ms, "peak_bound_ms_T1024": bound})
+              "peak_plain_ms_T1024": plain_ms, "peak_bound_ms_T1024": bound,
+              "peak_fma_counted_bound_ms_T1024": fma_bound,
+              "peak_sass_loops_fp32": loops})
         ms = res["peak_ms_by_iterations"][str(T)]
         ok = all(bitwise.values())
         self.kernels["peak"].update(
             launches=launches, max_abs_err=max(errs), agree_frac=1.0 if ok else 0.0,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations")
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+            fma_counted_bound_ms=fma_bound, sass_loops_fp32=loops)
+        if any(lp["FFMA"] or (lp["FMUL"] + lp["FADD"]) % 24 for lp in loops):
+            raise AssertionError(f"the peak loop is not 3 unfused FP32 instructions "
+                                 f"per iteration of its 8 chains: {loops}")
         if not ok:
             raise AssertionError(f"the peak kernel differs from its plain version: {bitwise}")
         if not (res["vpu_fma_peak_tflops"] > 0 and res["kernel_chunk_ms"] > 0):

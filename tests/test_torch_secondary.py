@@ -51,7 +51,9 @@ from bio_ik_tpu_torch.kernels.bio2_megastep import (
     philox_draw,
 )
 from bio_ik_tpu_torch.kernels.bio2_fullstep import (
+    gauss_from_u01,
     philox_words,
+    rate_from_bits,
     rates_from_words,
     u01_from_bits,
 )
@@ -355,33 +357,81 @@ def test_regularized_solve_cpu(arms):
         p.fitness_secondary(res0.qa, data).mean())
 
 
+def _generator_draws(eng, salt_row, B):
+    """The species tier's earlier kind of randomness, for comparison:
+    per-step ``torch.Generator`` words XORed with each scenario's salt,
+    mapped to CLT4 noise, rates, wipe words and keeps as the JAX engine
+    maps its words; a ``draws`` for ``_species_solve``."""
+    sp, I = eng.sp, eng.islands
+    V, C, M = sp.V, sp.C, salt_row.shape[-1]
+    salt_bi = salt_row[0].reshape(B, I, 2)[..., 0]
+
+    def draws(step):
+        gen = torch.Generator().manual_seed(1000 + step)
+
+        def words(*shape):
+            return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                                 generator=gen)
+
+        noise = torch.stack([gauss_from_u01(
+            [u01_from_bits(words(V, C, M) ^ salt_row) for _ in range(4)], "clt4")
+            for _ in range(sp.gens)])
+        rates = rate_from_bits(words(sp.gens, C, M) ^ salt_row)
+        wipe_u = u01_from_bits(words(B, I) ^ salt_bi)
+        wipe_g = u01_from_bits(words(B, I, V) ^ salt_bi[..., None])
+        return noise, rates, wipe_u, wipe_g, u01_from_bits(words(sp.gens, 1, M) ^ salt_row)
+    return draws
+
+
 def test_species_tier_with_regularizers_cpu():
     """Path (b)'s goals on the species tier: keeps drawn with the step's
-    other words, the secondary rows in the kernel, deterministic, solved."""
+    other words, the secondary rows in the kernel, solved within the
+    configuration's budget (16 steps), and at 8 steps as often as with the
+    earlier kind of noise (generator words) on the same targets, each
+    scenario's result the same in a batch of 4 as in a batch of 256.  At
+    8 steps a single scenario is a matter of luck under either stream (the
+    first target is solved for ~0.3 of keys), so quality is held on 4
+    targets × 64 keys."""
     tm = RobotModel.from_urdf_file(asset_path("planar_arm.urdf"), device="cpu")
     goals = [G.PositionGoal(link="tool"), G.MinimalDisplacementGoal(weight=0.05),
              G.AvoidJointLimitsGoal(weight=0.05)]
-    s = IKSolver(tm, goals, SolverConfig(mode="bio2_memetic", dpos=5e-3,
-                                         dtwist=float("inf"), max_steps=8,
-                                         islands=2))
+    cfg = dict(mode="bio2_memetic", dpos=5e-3, dtwist=float("inf"), islands=2)
+    b = tm._np_bounds
+    qg = np.random.default_rng(0).uniform(b["min"], b["max"], size=(4, 5))
+
+    def batch(s, R):
+        B = 4 * R
+        tg = make_fk(tm, ["tool"])(torch.as_tensor(np.repeat(qg, R, 0),
+                                                   dtype=torch.float32))
+        data = tree_map(lambda x: x.expand((B,) + x.shape).clone(),
+                        s.make_data(tm.neutral_q()))
+        data["primary"][0]["position"] = tg.pos.contiguous()
+        keys = torch.stack([torch.arange(B) % R, torch.arange(B)], -1)
+        return keys, data
+
+    s = IKSolver(tm, goals, SolverConfig(max_steps=16, **cfg))
     eng = s.engine
     assert not eng.fullstep and eng.sec_terms == REG and eng.kernel.sec_terms == REG
     B = 4
-    b = tm._np_bounds
-    qg = np.random.default_rng(0).uniform(b["min"], b["max"], size=(B, 5))
-    tg = make_fk(tm, ["tool"])(torch.as_tensor(qg, dtype=torch.float32))
-    data = tree_map(lambda x: x.expand((B,) + x.shape).clone(),
-                    s.make_data(tm.neutral_q()))
-    data["primary"][0]["position"] = tg.pos.contiguous()
-    keys = torch.stack([torch.zeros(B, dtype=torch.int64), torch.arange(B)], -1)
+    keys, data = batch(s, 1)
     salt_row = torch.zeros((1, B * 4), dtype=torch.int32)
-    d = eng._species_draws(0, salt_row, torch.zeros((B, 2), dtype=torch.int32))
-    assert len(d) == 5 and tuple(d[4].shape) == (eng.sp.gens, 1, B * 4)
-    assert 0.0 <= float(d[4].min()) and float(d[4].max()) < 1.0
-    res = s.solve_batch(keys, data)
-    assert bool(res.success.all())
-    for a, b_ in zip(res, s.solve_batch(keys, data)):
-        assert torch.equal(a, b_)
+    kw, _, _ = eng._species_stream(0, 0, salt_row)
+    d = eng.kernel.philox_tensors(kw["seed"], kw["step"], salt_row)
+    assert len(d) == 3 and tuple(d[2].shape) == (eng.sp.gens, 1, B * 4)
+    assert 0.0 <= float(d[2].min()) and float(d[2].max()) < 1.0
+    assert bool(s.solve_batch(keys, data).success.all())
+    # at 8 steps, 64 keys per target: the engine's stream against
+    # generator words injected in tensor mode
+    s8 = IKSolver(tm, goals, SolverConfig(max_steps=8, **cfg))
+    keys, data = batch(s8, 64)
+    own = s8.solve_batch(keys, data)
+    gen = s8.engine._species_solve(keys, data, _generator_draws(
+        s8.engine, s8.engine._lane_setup(keys, data)["salt_row"], 256))
+    rate, gen_rate = float(own.success.float().mean()), float(gen.success.float().mean())
+    assert rate >= gen_rate - 0.1, (rate, gen_rate)
+    first = s8.solve_batch(keys[:4], tree_map(lambda x: x[:4].contiguous(), data))
+    for a, b_ in zip(first, own):
+        assert torch.equal(a, b_[:4])
 
 
 # ---- kernels' plain versions --------------------------------------------

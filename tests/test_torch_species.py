@@ -32,13 +32,14 @@ from bio_ik_tpu.kernels.bio2_step import (SpeciesParams as JSpeciesParams,
 import bio_ik_tpu_torch.goals as G
 from bio_ik_tpu_torch import (AdaptiveBatchSolver, IKSolver, RobotModel,
                               SolverConfig, make_fk)
-from bio_ik_tpu_torch.engine import FusedBio2Engine, _scenario_salt
+from bio_ik_tpu_torch.engine import FusedBio2Engine
 from bio_ik_tpu_torch.interop import tree_from_numpy, tree_map
-from bio_ik_tpu_torch.kernels.bio2_megastep import MEGASTEP_SHAPES
+from bio_ik_tpu_torch.kernels.bio2_megastep import MEGASTEP_SHAPES, philox_draw
 from bio_ik_tpu_torch.kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel,
                                                 SpeciesParams, make_species_inner,
                                                 species_bytes_per_lane,
-                                                species_flops_per_lane)
+                                                species_flops_per_lane,
+                                                species_philox_calls_per_lane)
 from bio_ik_tpu_torch.kernels.build import CSRC
 from bio_ik_tpu_torch.kernels.checks import lane_agreement, species_inputs
 
@@ -87,10 +88,18 @@ def test_species_kernel_wrapper_dispatch():
 
 def test_species_cost_model():
     """The slice's launch (free_arm, V=10, K=1): 29 920 FLOPs and 6 416
-    bytes per lane (the TPU kernel's cost estimate plus the goal rows)."""
+    bytes per lane (the TPU kernel's cost estimate plus the goal rows) with
+    noise tensors, 788 in Philox mode (the salt in place of the noise and
+    rates), and 8 × (16·8 + 1) = 1 032 Philox calls."""
     sp = SpeciesParams(V=10, K=1)
     assert species_flops_per_lane(sp) == 29920
     assert species_bytes_per_lane(sp) == 6416
+    assert species_bytes_per_lane(sp, rng="philox") == 788
+    assert species_bytes_per_lane(sp, ("beta",), rng="philox") == 788 + 4 * 80
+    assert species_bytes_per_lane(sp, ("beta",)) == 6416 + 4 * (8 + 80)
+    assert species_philox_calls_per_lane(sp) == 1032
+    assert species_philox_calls_per_lane(sp, "box_muller") == 8 * (160 + 1)
+    assert species_philox_calls_per_lane(SpeciesParams(V=5, K=1)) == 8 * (16 * 4 + 1)
 
 
 def _np_book(f, qa_bis, tips_bis, genes, grads, sfit, solution, sol_fit,
@@ -174,6 +183,11 @@ def _pos_err(model, q, tg):
 
 
 def test_species_draws_injected_and_own(rng):
+    """Injected noise tensors replace the engine's own stream; the engine's
+    own draws are the megastep tier's Philox stream (``philox_draw`` at the
+    chunk's seed, the step within the chunk and the lane): deterministic,
+    another per step, the rate ladder, and a fresh scenario key changes
+    only that scenario's lanes and islands."""
     tm = _model("planar_arm.urdf")
     s = IKSolver(tm, [G.PositionGoal(link="tool")],
                  SolverConfig(**dict(CFG, max_steps=4, islands=2)))
@@ -201,23 +215,35 @@ def test_species_draws_injected_and_own(rng):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not torch.equal(a.q, own.q)
-    # the engine's own draws: salted words of one step
-    salt = _scenario_salt(keys).to(torch.int32)
-    salt_row = salt[:, None].expand(B, 4).reshape(1, M).contiguous()
-    salt_bi = salt[:, None].expand(B, 2)
-    d0 = eng._species_draws(0, salt_row, salt_bi)
-    assert [tuple(x.shape) for x in d0] == [
-        (sp.gens, 5, sp.C, M), (sp.gens, sp.C, M), (B, 2), (B, 2, 5)]
-    for x, y in zip(d0, eng._species_draws(0, salt_row, salt_bi)):
+    # the engine's own draws: the kernel's Philox arguments and the
+    # islands' wipe words, those of philox_draw at the same counters
+    salt_row = eng._lane_setup(keys, data)["salt_row"]
+    kw, wipe_u, wipe_g = eng._species_stream(0, 1, salt_row)
+    assert kw["seed"] == eng._chunk_seed(0) and kw["step"] == 1
+    assert kw["salt"] is salt_row and tuple(wipe_u.shape) == (B, 2)
+    d0 = eng.kernel.philox_tensors(kw["seed"], 1, salt_row)
+    assert [tuple(x.shape) for x in d0[:2]] == [(sp.gens, 5, sp.C, M),
+                                                (sp.gens, sp.C, M)]
+    draw_gen, mu, mg = philox_draw(kw["seed"], salt_row, sp.V, sp.C)(1)
+    for g in range(sp.gens):
+        assert all(torch.equal(x[g], y) for x, y in zip(d0[:2], draw_gen(g)))
+    # each island's second species lane (the lane the megastep wipes)
+    assert torch.equal(wipe_u.reshape(1, -1), mu[:, 1::2])
+    assert torch.equal(wipe_g.reshape(-1, sp.V).T, mg[:, 1::2])
+    for x, y in zip(d0[:2], eng.kernel.philox_tensors(kw["seed"], 1, salt_row)):
         assert torch.equal(x, y)
-    assert not torch.equal(d0[0], eng._species_draws(1, salt_row, salt_bi)[0])
+    assert not torch.equal(d0[0], eng.kernel.philox_tensors(kw["seed"], 2, salt_row)[0])
     k = torch.log2(d0[1]) + 23
     assert bool((k == k.round()).all()) and 0 <= int(k.min()) and int(k.max()) <= 15
-    salt_row2 = salt_row.clone()
-    salt_row2[0, 4:8] ^= 0x5A5A5A5A             # scenario 1's four lanes
-    changed = (eng._species_draws(0, salt_row2, salt_bi)[0] != d0[0]) \
+    keys2 = keys.clone()
+    keys2[1, 1] = 999                           # scenario 1: lanes 4..7
+    salt_row2 = eng._lane_setup(keys2, data)["salt_row"]
+    changed = (eng.kernel.philox_tensors(kw["seed"], 1, salt_row2)[0] != d0[0]) \
         .reshape(-1, M).any(0)
     assert changed.nonzero().flatten().tolist() == [4, 5, 6, 7]
+    _, wipe_u2, wipe_g2 = eng._species_stream(0, 1, salt_row2)
+    moved = (wipe_u2 != wipe_u) | (wipe_g2 != wipe_g).any(-1)
+    assert moved.nonzero().tolist() == [[1, 0], [1, 1]]
 
 
 def test_free_arm_solve_batch_cpu():
