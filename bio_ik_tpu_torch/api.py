@@ -59,6 +59,11 @@ class IKSolver:
         device=None,
     ):
         _check_device(model, device)
+        if config.counter:
+            # JAX records every solve in a SolveStats (api.py:209-217)
+            raise NotImplementedError(
+                "counter=True (per-solve statistics) is not ported yet "
+                "(ROADMAP.md, port queue item 6)")
         self.model = model
         self.config = config
         self.device = model.device

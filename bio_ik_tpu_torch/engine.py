@@ -18,12 +18,15 @@ chunks.  Two kernel tiers, chosen from the chain:
     exact FK, fitness, incumbents, species sort and wipeout in plain torch
     (reference: ik_evolution_2.cpp:604-645).
 
-Primary goals are of the pose family (the other in-kernel kinds are
-ROADMAP.md port queue item 1); joint-space secondary goals run in-kernel on
-both tiers (the packed rows of :meth:`_secondary_rows`: per-generation
-pre-selection and the combined memetic line search).  ``solve_until``
-waits for item 2.  On a card, a problem whose kernel shape
-neither CUDA source instantiates is rejected by :meth:`supports` (item 9).
+Primary goals of the pose family run on both tiers, the eight other
+in-kernel kinds (lookat, line, plane, max/min_distance, cone, direction,
+side) on the fullstep tier (the rows of :meth:`_goal_rows`); joint-space
+secondary goals run in-kernel on both tiers (the packed rows of
+:meth:`_secondary_rows`: per-generation pre-selection and the combined
+memetic line search).  ``solve_until`` waits for item 2.  On a card, a
+problem whose kernel shape no CUDA source instantiates, or whose goal
+kinds its instance does not evaluate, is rejected by :meth:`supports`
+(item 9).
 
 Randomness.  Per-scenario keys are ``(B, 2)`` integer tensors of 32-bit
 words (the layout of a raw JAX ``PRNGKey``).  :func:`_scenario_salt` equals
@@ -54,8 +57,8 @@ import numpy as np
 import torch
 
 from .interop import tree_map
-from .kernels.bio2_fullstep import POSE_KINDS
-from .kernels.bio2_megastep import MEGASTEP_SHAPES, Megastep, philox_wipe
+from .kernels.bio2_fullstep import AUX_KINDS, LINK_KINDS, POSE_KINDS
+from .kernels.bio2_megastep import MEGASTEP_SOURCES, Megastep, philox_wipe
 from .kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel, SpeciesParams, _P,
                                 quat_mask)
 from .kernels.fk_rows import FkRows, supports_fullstep_chain
@@ -80,10 +83,20 @@ _SEC_TERM_OF = {
     "avoid_joint_limits": "gamma",
     "joint_variable": "delta",
 }
-# primary kinds of the JAX package's fused fitness (JAX engine.py:276-277);
-# the port's kernels run the pose family of them
-_FUSED_KINDS = POSE_KINDS + ("max_distance", "min_distance", "lookat", "line",
-                             "plane", "direction", "side", "cone")
+# primary kinds of the fused fitness (JAX engine.py:276-277)
+_FUSED_KINDS = POSE_KINDS + LINK_KINDS
+# per non-pose kind, the data entries its gpos, gaux and wrot rows carry
+# (JAX engine.py:378-414)
+_LINK_ROWS = {
+    "lookat": ("target", "axis", None),
+    "max_distance": ("target", None, "distance"),
+    "min_distance": ("target", None, "distance"),
+    "line": ("position", "direction", None),
+    "plane": ("position", "normal", None),
+    "direction": ("direction", "axis", None),
+    "side": ("direction", "axis", None),
+    "cone": ("position", "axis", "position_weight_sq"),
+}
 
 
 def _mul32(x, c: int):
@@ -158,6 +171,7 @@ class FusedBio2Engine:
                 self.ginst.append((gi, k, int(grp.tip_slots[k]), grp.kind))
         K = len(self.ginst)
         self.inst_kind = [g[3] for g in self.ginst]
+        self.has_aux = any(k in AUX_KINDS for k in self.inst_kind)
         model = p.model
         self.fullstep = supports_fullstep_chain(
             model, [model.link_index[t] for t in p.tip_links])
@@ -202,13 +216,10 @@ class FusedBio2Engine:
         for grp in p.primary:
             if grp.kind not in _FUSED_KINDS:
                 return f"goal kind {grp.kind!r} not in the fused fitness"
-            if grp.kind not in POSE_KINDS:
-                # the species tier keeps pose-shaped rows (JAX engine.py:295-300)
-                if not fullstep:
-                    return ("non-pose primary goals need the fullstep kernel "
-                            "(floating/planar chain)")
-                return (f"goal kind {grp.kind!r} is not ported yet (ROADMAP.md, "
-                        "port queue item 1)")
+            # the species tier keeps pose-shaped rows (JAX engine.py:295-300)
+            if grp.kind not in POSE_KINDS and not fullstep:
+                return ("non-pose primary goals need the fullstep kernel "
+                        "(floating/planar chain)")
         if np.dtype(p.dtype) != np.float32:
             return "fused kernel is float32"
         V = len(p.active_vars)
@@ -216,10 +227,19 @@ class FusedBio2Engine:
             return f"{V} active variables exceed the unroll guard"
         if p.device.type == "cuda":
             K = sum(grp.count for grp in p.primary)
-            if fullstep and (V, K, p.ntips) not in MEGASTEP_SHAPES:
+            shape = (V, K, p.ntips)
+            if fullstep and not any(shape in x for x in MEGASTEP_SOURCES.values()):
                 return (f"the megastep kernel is not instantiated for "
-                        f"(V, K, T) = {(V, K, p.ntips)} (csrc/megastep.cu has "
-                        f"{list(MEGASTEP_SHAPES)}; ROADMAP.md, port queue item 9)")
+                        f"(V, K, T) = {shape} (csrc/megastep.cu has "
+                        f"{list(MEGASTEP_SOURCES['megastep'])}, "
+                        f"csrc/megastep_wide.cu {list(MEGASTEP_SOURCES['megastep_wide'])}"
+                        "; ROADMAP.md, port queue item 9)")
+            if fullstep and shape in MEGASTEP_SOURCES["megastep"] and any(
+                    grp.kind not in POSE_KINDS for grp in p.primary):
+                return (f"the (V, K, T) = {shape} megastep instance evaluates the "
+                        "pose family only (csrc/megastep.cu; the other kinds run "
+                        "on the csrc/megastep_wide.cu instances; ROADMAP.md, port "
+                        "queue item 9)")
             qmask = quat_mask(quat_gene_slices(model, p.active_vars))
             if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
                 return (f"the species kernel is not instantiated for (V, K) = "
@@ -273,16 +293,34 @@ class FusedBio2Engine:
 
     # ------------------------------------------------------------------
     def _goal_rows(self, data, B):
-        """Per-goal-instance kernel rows from the data dict: gpos (B, 3K),
-        gquat (B, 4K), wpos/wrot (B, K), pose family (the JAX engine's
-        ``_goal_rows`` without the non-pose kinds' gaux rows)."""
-        gpos, gquat, wpos, wrot = [], [], [], []
+        """Per-goal-instance kernel rows from the data dict (JAX
+        engine.py:352-432): gpos (B, 3K), gquat (B, 4K), gaux (B, 3K),
+        wpos/wrot (B, K).  Row reuse per kind (bio2_fullstep's link_goal):
+        lookat and max/min_distance put the target in gpos, line and plane
+        their anchor point, direction and side the world direction; gaux
+        carries the link-local axis (lookat/direction/side/cone) or the line
+        direction / plane normal; wrot doubles as the distance of
+        max/min_distance and as cone's position weight, cone's gquat rows
+        carry [direction, angle]; wpos carries the weight of every non-pose
+        kind."""
+        gpos, gquat, gaux, wpos, wrot = [], [], [], [], []
         for gi, k, _slot, kind in self.ginst:
             gd = data["primary"][gi]
             w = gd["weight_sq"][..., k]
             zeros3 = torch.zeros(w.shape + (3,), dtype=w.dtype, device=w.device)
             ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=w.dtype,
                                  device=w.device).expand(w.shape + (4,))
+            if kind in LINK_KINDS:
+                anchor, aux, scalar = _LINK_ROWS[kind]
+                gpos.append(gd[anchor][..., k, :])
+                gquat.append(torch.cat([gd["direction"][..., k, :],
+                                        gd["angle"][..., k][..., None]], -1)
+                             if kind == "cone" else ident)
+                gaux.append(gd[aux][..., k, :] if aux else zeros3)
+                wpos.append(w)
+                wrot.append(gd[scalar][..., k] if scalar else torch.zeros_like(w))
+                continue
+            gaux.append(zeros3)
             gpos.append(gd["position"][..., k, :] if kind in ("position", "pose")
                         else zeros3)
             gquat.append(gd["orientation"][..., k, :]
@@ -299,6 +337,7 @@ class FusedBio2Engine:
         return (
             torch.stack(gpos, -2).reshape(B, -1),
             torch.stack(gquat, -2).reshape(B, -1),
+            torch.stack(gaux, -2).reshape(B, -1),
             torch.stack(wpos, -1),
             torch.stack(wrot, -1),
         )
@@ -326,7 +365,7 @@ class FusedBio2Engine:
         seed_active = data["seed_active"].to(torch.float32)      # (B, V)
         seed_full = data["seed_full"]                            # (B, Vfull)
         seed_bis = seed_active[:, None, None, :].expand(B, I, S, V)
-        gpos_b, gquat_b, wpos_b, wrot_b = self._goal_rows(data, B)
+        gpos_b, gquat_b, gaux_b, wpos_b, wrot_b = self._goal_rows(data, B)
         genes = to_lanes(seed_bis[..., None, :].expand(B, I, S, _P, V)
                          .reshape(B, I, S, _P * V))
         seed_tips_f = ctx.tips_frame(seed_full, seed_active)      # (B, T)
@@ -343,6 +382,7 @@ class FusedBio2Engine:
             span=bounds(p.aspan), cmin=bounds(p.aclip_min),
             cmax=bounds(p.aclip_max),
             gpos=lane_goal(gpos_b), gquat=lane_goal(gquat_b),
+            gaux=lane_goal(gaux_b) if self.has_aux else None,
             wpos=lane_goal(wpos_b), wrot=lane_goal(wrot_b),
             genes=genes, grads=torch.zeros_like(genes),
             seed_tips_f=seed_tips_f, f0=f0,
@@ -375,8 +415,9 @@ class FusedBio2Engine:
             B, I, S, T * 7))
         best = self._eval_lanes(sol_r, sol_fit_r, sol_tips_r, data)
         state = (ls["genes"], ls["grads"], sfit_r, sol_r, sol_fit_r, sol_tips_r)
-        consts = (qfix, ls["gpos"], ls["gquat"], ls["wpos"], ls["wrot"],
-                  ls["span"], ls["cmin"], ls["cmax"], amin, amax)
+        consts = ((qfix, ls["gpos"], ls["gquat"]) + ((ls["gaux"],) if self.has_aux else ())
+                  + (ls["wpos"], ls["wrot"], ls["span"], ls["cmin"], ls["cmax"],
+                     amin, amax))
         if self.sec_terms:
             consts += (ls["lane_goal"](self._secondary_rows(data, B)),)
         return state, consts, ls["salt_row"], best

@@ -22,8 +22,17 @@ megastep and species kernels map words to draws is
 With joint-space secondary goals (``sec_terms``) the step ranks each
 generation's children by secondary fitness and keeps a random-count best
 prefix, and the memetic line search runs on the combined fitness while
-accepting on the primary (reference :366-378, :459-537).  The non-pose goal
-kinds of the JAX body are not ported yet (ROADMAP.md, port queue item 1).
+accepting on the primary (reference :366-378, :459-537).
+
+Besides the pose family (position/orientation/pose folded through the
+weight rows) the step evaluates the eight other kinds of the JAX body
+(lookat, line, plane, max_distance, min_distance, cone, direction, side;
+``inst_kind``), reading the per-instance rows as ``engine._goal_rows``
+packs them: the extra ``gaux (3K, N)`` rows carry a link-local axis or a
+line direction / plane normal (:data:`AUX_KINDS`), ``wrot`` the distance of
+max/min_distance and the position weight of cone, cone's free ``gquat``
+rows its [direction, angle].  Their memetic gradient has the position
+columns only, as in the JAX body.
 """
 
 from __future__ import annotations
@@ -34,21 +43,30 @@ import numpy as np
 import torch
 
 from .bio2_step import SpeciesParams, _P, make_sec_eval, preselect
-from .fk_rows import FkRows
+from .fk_rows import FkRows, _qrot
 
 __all__ = ["make_fullstep_inner", "array_draw_gen", "gauss_from_u01",
            "philox4x32", "philox_words", "u01_from_bits", "rate_from_bits",
            "packed_fields", "clt4_from_fields", "rates_from_words",
-           "GAUSS_MODES", "POSE_KINDS"]
+           "GAUSS_MODES", "POSE_KINDS", "AUX_KINDS", "LINK_KINDS"]
 
 GAUSS_MODES = ("clt4", "box_muller")
 POSE_KINDS = ("position", "orientation", "pose")
+# the other kinds of the step, in the order of their kernel codes
+# (csrc/megastep.cuh GK_*; the pose family is code 0)
+LINK_KINDS = ("lookat", "line", "plane", "max_distance", "min_distance",
+              "cone", "direction", "side")
+# kinds whose rows need the extra gaux (3K, N) const: the link-local axis
+# (lookat/direction/side/cone) or the line direction / plane normal
+AUX_KINDS = ("lookat", "line", "plane", "direction", "side", "cone")
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _INV24 = 1.0 / (1 << 24)
 _SQRT3 = float(np.float32(np.sqrt(3.0)))
+_PI = float(np.float32(np.pi))
+_HALF_PI = float(np.float32(np.pi / 2))
 
 
 def _mulhilo(a: int, b):
@@ -158,6 +176,21 @@ def array_draw_gen(noise, rates, keep=None):
     return draw_gen
 
 
+def _atan2_nonneg(y, x):
+    """atan2 for y ≥ 0 (range [0, π]) by the JAX body's Hastings odd
+    polynomial (max error ~1e-5 rad), which the kernel repeats; the
+    acceptance test evaluates the exact form."""
+    ax = torch.abs(x)
+    mn = torch.minimum(y, ax)
+    mx = torch.maximum(y, ax)
+    t = mn / (mx + 1e-30)
+    t2 = t * t
+    p = t * (0.9998660 + t2 * (-0.3302995 + t2 * (0.1801410 + t2 * (
+        -0.0851330 + t2 * 0.0208351))))
+    r = torch.where(y > ax, _HALF_PI - p, p)
+    return torch.where(x < 0, _PI - r, r)
+
+
 def _comp(tipcomp, d):
     pos, quat = tipcomp
     return pos[d] if d < 3 else quat[d - 3]
@@ -174,22 +207,26 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
                         inst_kind: Sequence[str] = None):
     """Build the fused step on ``(rows, N)`` tensors.
 
-    ``inst_tip[k]`` maps goal instance k → tip index; every instance is of
-    the pose family (weights select position/orientation).  Signature::
+    ``inst_tip[k]`` maps goal instance k → tip index, ``inst_kind[k]`` its
+    kind (default: all of the pose family, whose weights select
+    position/orientation).  Signature::
 
       inner(genes (2V,N), grads (2V,N), qfix (F,N), gpos (3K,N),
-            gquat (4K,N), wpos (K,N), wrot (K,N), span/cmin/cmax (V,N),
-            draw_gen) → genes', grads', tips_exact (7T,N), fit (1,N)
+            gquat (4K,N), [gaux (3K,N),] wpos (K,N), wrot (K,N),
+            span/cmin/cmax (V,N), draw_gen)
+        → genes', grads', tips_exact (7T,N), fit (1,N)
 
-    ``draw_gen(g) → (noise (V,C,N), rates (C,N))``.  With ``sec_terms`` the
-    packed ``sec (8V,N)`` rows come after ``cmax`` and ``draw_gen`` also
-    returns the pre-selection uniform ``keep (1,N)``.  Returns ``(inner,
-    F)`` with F the number of fixed-variable rows.
+    ``gaux`` iff an instance is of :data:`AUX_KINDS`.  ``draw_gen(g) →
+    (noise (V,C,N), rates (C,N))``.  With ``sec_terms`` the packed ``sec
+    (8V,N)`` rows come after ``cmax`` and ``draw_gen`` also returns the
+    pre-selection uniform ``keep (1,N)``.  Returns ``(inner, F)`` with F
+    the number of fixed-variable rows.
     """
-    if inst_kind is not None and any(k not in POSE_KINDS for k in inst_kind):
-        raise NotImplementedError(
-            "non-pose goal kinds in the fused step are not ported yet "
-            "(ROADMAP.md, port queue item 1)")
+    inst_kind = list(inst_kind) if inst_kind is not None else ["pose"] * sp.K
+    for kind in inst_kind:
+        if kind not in POSE_KINDS + LINK_KINDS:
+            raise ValueError(f"goal kind {kind!r} is not one of the fused step's")
+    has_aux = any(k in AUX_KINDS for k in inst_kind)
     fkr = FkRows(model, tip_links, active_vars)
     V, K, C = sp.V, sp.K, sp.C
     T = len(tip_links)
@@ -200,8 +237,11 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
 
     secondary = bool(sec_terms)
 
-    def inner(genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin, cmax,
-              *rest):
+    def inner(genes, grads, qfix, gpos, gquat, *rest):
+        na = int(has_aux)
+        gaux = rest[0] if has_aux else None
+        wpos, wrot, span, cmin, cmax = rest[na:na + 5]
+        rest = rest[na + 5:]
         if secondary:
             sec, draw_gen = rest
             sec_of, sec_grad = make_sec_eval(sec, V, tuple(sec_terms))
@@ -244,9 +284,17 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
             return ph
 
         def eval_goals(ph, want_grad=False):
+            """The instances' errors summed (fit) and, with ``want_grad``,
+            d(fit)/d(ph[k·7+d]) as ``gvec`` (the float 0.0 where a kind has
+            no such column: skipped).  The JAX body's forms and order."""
             fit = None
             gvec = [0.0] * (K * 7) if want_grad else None
             for k in range(K):
+                kind = inst_kind[k]
+                if kind in LINK_KINDS:
+                    term = link_goal(k, kind, ph, gvec)
+                    fit = term if fit is None else fit + term
+                    continue
                 perr = 0.0
                 for d in range(3):
                     e = ph[k * 7 + d] - row(gpos, k * 3 + d)
@@ -270,6 +318,104 @@ def make_fullstep_inner(model, tip_links: Sequence[str],
                             ph[k * 7 + 3 + d] - sgn * row(gquat, k * 4 + d))
                 fit = term if fit is None else fit + term
             return fit, gvec
+
+        def link_goal(k, kind, ph, gvec):
+            """The error of instance k of one of :data:`LINK_KINDS` (JAX
+            bio2_fullstep.py:250-376), its position gradient into ``gvec``."""
+            pos = tuple(ph[k * 7 + d] for d in range(3))
+            q = tuple(ph[k * 7 + 3 + d] for d in range(4))
+            gp = tuple(row(gpos, k * 3 + d) for d in range(3))
+            ax = (tuple(row(gaux, k * 3 + d) for d in range(3))
+                  if kind in AUX_KINDS else None)
+            w = row(wpos, k)
+            want = gvec is not None
+            if kind == "lookat":
+                # ‖normalize(target−p) − normalize(R·axis)‖²
+                u = _qrot(q, ax)
+                uinv = torch.rsqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + 1e-12)
+                v = tuple(c * uinv for c in u)
+                dx = tuple(gp[d] - pos[d] for d in range(3))
+                dinv = torch.rsqrt(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+                                   + 1e-12)
+                n = tuple(c * dinv for c in dx)
+                err = 0.0
+                for d in range(3):
+                    e = n[d] - v[d]
+                    err = err + e * e
+                if want:
+                    s = 0.0
+                    for d in range(3):
+                        s = s + n[d] * (n[d] - v[d])
+                    for d in range(3):
+                        gvec[k * 7 + d] = w * (-2.0 * dinv) * ((n[d] - v[d]) - n[d] * s)
+                return w * err
+            if kind == "line":
+                # ‖(p−o) − d·((p−o)·d)‖²: o in gpos, unit d in gaux
+                dx = tuple(pos[d] - gp[d] for d in range(3))
+                along = dx[0] * ax[0] + dx[1] * ax[1] + dx[2] * ax[2]
+                perp = tuple(dx[d] - ax[d] * along for d in range(3))
+                err = perp[0] * perp[0] + perp[1] * perp[1] + perp[2] * perp[2]
+                if want:
+                    for d in range(3):
+                        gvec[k * 7 + d] = 2.0 * w * perp[d]
+                return w * err
+            if kind == "plane":
+                # ((p−o)·n)²: o in gpos, unit n in gaux
+                sd = 0.0
+                for d in range(3):
+                    sd = sd + (pos[d] - gp[d]) * ax[d]
+                if want:
+                    for d in range(3):
+                        gvec[k * 7 + d] = 2.0 * w * sd * ax[d]
+                return w * (sd * sd)
+            if kind in ("max_distance", "min_distance"):
+                # relu(±(|p−t| − dist))²: t in gpos, dist in the wrot row
+                dx = tuple(pos[d] - gp[d] for d in range(3))
+                nrm2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+                rinv = torch.rsqrt(nrm2 + 1e-12)
+                nrm = nrm2 * rinv
+                sgn = 1.0 if kind == "max_distance" else -1.0
+                dd = torch.clamp(sgn * (nrm - row(wrot, k)), min=0.0)
+                if want:
+                    c = 2.0 * sgn * w * dd * rinv
+                    for d in range(3):
+                        gvec[k * 7 + d] = c * dx[d]
+                return w * (dd * dd)
+            if kind == "cone":
+                # max(0, angle(R·axis, dir) − angle)² + pw·‖pos − p‖²: apex in
+                # gpos, [dir, angle] in the gquat rows, pw in the wrot row
+                v = _qrot(q, ax)
+                dr = tuple(row(gquat, k * 4 + d) for d in range(3))
+                cx = v[1] * dr[2] - v[2] * dr[1]
+                cy = v[2] * dr[0] - v[0] * dr[2]
+                cz = v[0] * dr[1] - v[1] * dr[0]
+                cn = torch.sqrt(cx * cx + cy * cy + cz * cz + 1e-18)
+                dot = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2]
+                dd = torch.clamp(_atan2_nonneg(cn, dot) - row(gquat, k * 4 + 3), min=0.0)
+                pe = 0.0
+                for d in range(3):
+                    e = gp[d] - pos[d]
+                    pe = pe + e * e
+                if want:
+                    c = 2.0 * w * row(wrot, k)
+                    for d in range(3):
+                        gvec[k * 7 + d] = c * (pos[d] - gp[d])
+                return w * (dd * dd + row(wrot, k) * pe)
+            # direction ‖R·axis − dir‖², side relu(R·axis · dir)²: dir in
+            # gpos; no gradient (the rotation columns are omitted)
+            v = _qrot(q, ax)
+            if kind == "direction":
+                err = 0.0
+                for d in range(3):
+                    e = v[d] - gp[d]
+                    err = err + e * e
+            else:
+                f = 0.0
+                for d in range(3):
+                    f = f + v[d] * gp[d]
+                fr = torch.clamp(f, min=0.0)
+                err = fr * fr
+            return w * err
 
         child_global = torch.arange(C, device=dev)[:, None] + _P
         fmix = torch.where(child_global % 2 == 0, 0.2, 0.0).to(dt)

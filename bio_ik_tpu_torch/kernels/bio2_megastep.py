@@ -28,6 +28,16 @@ draws, and so the results, do not depend on G.
 With joint-space secondary goals (``sec_terms``) the consts end with the
 packed ``sec (8V, N)`` rows and each generation draws one more uniform, the
 pre-selection keep (``keep (steps·gens, 1, N)`` in noise-tensor mode).
+Goal instances of the other kinds (``inst_kind``: lookat, line, plane, …;
+:data:`bio2_fullstep.LINK_KINDS`) bring the ``gaux (3K, N)`` const after
+``gquat`` where one of them needs it (:data:`bio2_fullstep.AUX_KINDS`).
+
+Two CUDA sources share the step (``csrc/megastep.cuh``):
+``csrc/megastep.cu`` holds the pose-family instances of few variables,
+whose lane linearization lives in registers, and ``csrc/megastep_wide.cu``
+the instances of many variables and tips, whose linearization lives in
+shared memory by dependency column and which evaluate every goal kind
+(:data:`MEGASTEP_SOURCES`).
 
 :class:`Fullstep` wraps the same step without the bookkeeping (the TPU
 kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
@@ -42,7 +52,10 @@ import numpy as np
 import torch
 
 from .bio2_fullstep import (
+    AUX_KINDS,
     GAUSS_MODES,
+    LINK_KINDS,
+    POSE_KINDS,
     array_draw_gen,
     clt4_from_fields,
     gauss_from_u01,
@@ -58,13 +71,19 @@ from .fk_rows import FkRows
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "philox_wipe",
            "Megastep", "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
            "philox_calls_per_lane_step", "clt4_calls", "choose_group",
-           "MEGASTEP_SHAPES",
-           "GROUPS"]
+           "MEGASTEP_SOURCES", "MEGASTEP_GROUPS", "KIND_CODE", "dependency_columns"]
 
-# (V, K, T) instances of csrc/megastep.cu (its SHAPES macro), each for
-# every group size G of GROUPS (its GROUPS macro)
-MEGASTEP_SHAPES = ((7, 1, 1), (6, 1, 1))
-GROUPS = (1, 2, 4, 8)
+# (V, K, T) instances of each megastep source (its SHAPES macro), each for
+# every group size G of the source's GROUPS macro; the wide source's
+# instances evaluate every goal kind of the step, the other's the pose
+# family.  The wide source leaves out G = 8, which choose_group picks at no
+# launch of its paths (each of its kernels takes ~20 s of nvcc)
+MEGASTEP_SOURCES = {"megastep": ((7, 1, 1), (6, 1, 1)),
+                    "megastep_wide": ((17, 2, 2),)}
+MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (1, 2, 4)}
+# the kernel's code of each goal kind (csrc/megastep.cuh GK_*)
+KIND_CODE = {**dict.fromkeys(POSE_KINDS, 0),
+             **{k: i + 1 for i, k in enumerate(LINK_KINDS)}}
 _BLOCK = 128          # threads per block (csrc/megastep.cu BLOCK)
 _MAX_C = 16           # children per generation the kernel takes (MAX_C)
 # share of a G = 1 lane-step that every thread of a group repeats (the FK,
@@ -101,13 +120,13 @@ def philox_calls_per_lane_step(sp: SpeciesParams) -> int:
 
 
 def choose_group(N: int, resident, C: int = _MAX_C) -> int:
-    """The group size G of a launch on ``N`` lanes: the G (dividing C) of
-    least estimated time ``waves(G)·((1 − r)/G + r)``, with ``waves(G)`` the
-    rounds of ``resident[G]`` blocks (blocks per SM · SMs) its ``N·G``
-    threads need and ``r`` the repeated share of a lane-step; ties to the
-    smaller G."""
+    """The group size G of a launch on ``N`` lanes: the G (dividing C, among
+    the keys of ``resident``) of least estimated time ``waves(G)·((1 −
+    r)/G + r)``, with ``waves(G)`` the rounds of ``resident[G]`` blocks
+    (blocks per SM · SMs) its ``N·G`` threads need and ``r`` the repeated
+    share of a lane-step; ties to the smaller G."""
     best = None
-    for g in GROUPS:
+    for g in sorted(resident):
         if C % g:
             continue
         blocks = -(-N * g // _BLOCK)
@@ -135,20 +154,25 @@ def make_megastep_body(model, tip_links, active_vars, inst_tip,
 
       state  = (genes (2V,N), grads (2V,N), sfit (1,N),
                 sol (V,N), sol_fit (1,N), sol_tips (7T,N))
-      consts = (qfix (max(F,1),N), gpos (3K,N), gquat (4K,N), wpos (K,N),
-                wrot (K,N), span/cmin/cmax/amin/amax (V,N)[, sec (8V,N)])
+      consts = (qfix (max(F,1),N), gpos (3K,N), gquat (4K,N),
+                [gaux (3K,N),] wpos (K,N), wrot (K,N),
+                span/cmin/cmax/amin/amax (V,N)[, sec (8V,N)])
 
-    by ``n_steps`` fused steps (``sec`` iff ``sec_terms``); ``draw(i) →
-    (draw_gen, wipe_u (1,N), wipe_g (V,N))`` supplies step i's randomness.
+    by ``n_steps`` fused steps (``gaux`` iff an instance of ``inst_kind``
+    is of :data:`bio2_fullstep.AUX_KINDS`, ``sec`` iff ``sec_terms``);
+    ``draw(i) → (draw_gen, wipe_u (1,N), wipe_g (V,N))`` supplies step i's
+    randomness.
     """
     inner, F = make_fullstep_inner(model, tip_links, active_vars, inst_tip,
                                    sp, sec_terms=sec_terms, inst_kind=inst_kind)
     V = sp.V
+    na = int(any(k in AUX_KINDS for k in (inst_kind or ())))
 
     def body(state, consts, draw):
         genes, grads, sfit, sol, sol_fit, sol_tips = state
-        qfix, gpos, gquat, wpos, wrot, span, cmin, cmax, amin, amax = consts[:10]
-        sec_args = tuple(consts[10:])
+        goal = tuple(consts[:3 + na])                 # qfix, gpos, gquat[, gaux]
+        wpos, wrot, span, cmin, cmax, amin, amax = consts[3 + na:10 + na]
+        sec_args = tuple(consts[10 + na:])
         N = genes.shape[-1]
         even = (torch.arange(N, device=genes.device) % 2 == 0)[None, :]
 
@@ -159,8 +183,8 @@ def make_megastep_body(model, tip_links, active_vars, inst_tip,
         for i in range(n_steps):
             draw_gen, wipe_u, wipe_g = draw(i)
             genes, grads, tips, fit = inner(
-                genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin,
-                cmax, *sec_args, draw_gen)
+                genes, grads, *goal, wpos, wrot, span, cmin, cmax, *sec_args,
+                draw_gen)
 
             # per-lane incumbent update (reference :640-644)
             better = fit < sol_fit
@@ -279,6 +303,24 @@ def _branch_slots(link_i):
     return np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
 
 
+def dependency_columns(link_i, V: int, T: int, inst_tip):
+    """The wide kernel's lane linearization by column: ``(cols, ncol)``.
+    Column ``tcol[v·T + t]`` holds ∂tip_t/∂x_v in shared memory, −1 where
+    tip t does not depend on variable v (the JAX body's ``dts[v][t] is
+    None``, skipped at trace time), from the link table's variable slots
+    and tip masks; ``cols`` is ``tcol`` followed by ``kcol[k·V + v] =
+    tcol[v·T + inst_tip[k]]``, the columns goal instance k reads."""
+    dep = np.zeros((V, T), bool)
+    for row in link_i:
+        for t in range(T):
+            if (row[4] >> t) & 1:
+                dep[row[3], t] = True
+    tcol = np.where(dep, np.cumsum(dep.reshape(-1)).reshape(V, T) - 1, -1)
+    kcol = tcol[:, list(inst_tip)].T
+    return (np.concatenate([tcol.reshape(-1), kcol.reshape(-1)]).astype(np.int32),
+            int(dep.sum()))
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
@@ -292,30 +334,42 @@ def _check(t, shape, name, dev, dtype=torch.float32):
 
 
 class _StepKernel:
-    """What :class:`Megastep` and :class:`Fullstep` share: the chain tables
-    of ``csrc/megastep.cu`` on each device and the shape check."""
+    """What :class:`Megastep` and :class:`Fullstep` share: the instance's
+    source (:data:`MEGASTEP_SOURCES`), its chain, goal-kind and column
+    tables on each device, and the shape check."""
 
     def __init__(self, model, tip_links, active_vars, inst_tip,
-                 sp: SpeciesParams, gauss_mode: str, sec_terms=()):
+                 sp: SpeciesParams, gauss_mode: str, sec_terms=(), inst_kind=None):
         if gauss_mode not in GAUSS_MODES:
             raise ValueError(f"gauss_mode must be one of {GAUSS_MODES}")
         self.sp, self.gauss_mode = sp, gauss_mode
         self.sec_terms = tuple(sec_terms)
         self.sec_mask = sec_term_mask(self.sec_terms)
         self.T = len(tip_links)
+        self.inst_kind = tuple(inst_kind or ("pose",) * sp.K)
+        self.has_aux = any(k in AUX_KINDS for k in self.inst_kind)
+        # the source of the instance (the pose-family source when neither has it)
+        self.source = next((src for src, shapes in MEGASTEP_SOURCES.items()
+                            if (sp.V, sp.K, self.T) in shapes), "megastep")
         link_i, link_f, tip_slot = FkRows(
             model, tip_links, active_vars).chain_arrays()
         branch = _branch_slots(link_i)
         self.nbranch = int((branch >= 0).sum())
+        cols, self.ncol = dependency_columns(link_i, sp.V, self.T, inst_tip)
+        if self.source == "megastep":
+            self.ncol = 0           # the linearization lives in registers
         self._chain = (np.concatenate([link_i, branch[:, None]], 1), link_f,
-                       tip_slot, np.asarray(inst_tip, np.int32))
+                       tip_slot, np.asarray(inst_tip, np.int32),
+                       np.asarray([KIND_CODE[k] for k in self.inst_kind], np.int32),
+                       cols)
+        self.groups = MEGASTEP_GROUPS[self.source]
         self._chain_dev = {}
         self._groups = {}
 
     def _lib(self, N):
         from .build import load
 
-        lib = load("megastep")
+        lib = load(self.source)
         sp = self.sp
         if N % 2:
             raise ValueError(f"lane count {N} must be even (species pairs)")
@@ -326,17 +380,19 @@ class _StepKernel:
         if not lib.megastep_has_shape(sp.V, sp.K, self.T):
             raise ValueError(
                 f"the megastep kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu; "
-                "ROADMAP.md, port queue item 9)")
+                f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu and "
+                "csrc/megastep_wide.cu; ROADMAP.md, port queue item 9)")
+        # engine.supports rejects other kinds on the pose-family source
+        assert self.source != "megastep" or set(self.inst_kind) <= set(POSE_KINDS)
         return lib
 
     def smem_bytes(self, lib, G: int) -> int:
         """Dynamic shared memory of one block of the instance at group G."""
         fn = lib.megastep_smem_bytes
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_uint]
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_uint] + [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
         return fn(self.sp.V, self._chain[0].shape[0], self.nbranch, self.sp.C,
-                  G, self.sec_mask)
+                  G, self.sec_mask, self.ncol, self.sp.K, self.T)
 
     def resident_blocks(self, lib, dev, G: int) -> int:
         """Blocks of the instance at group G the card holds at once."""
@@ -354,7 +410,7 @@ class _StepKernel:
     def group(self, lib, dev, N: int) -> int:
         """The group size of a launch on N lanes (:func:`choose_group`)."""
         if (dev, N) not in self._groups:
-            resident = {g: self.resident_blocks(lib, dev, g) for g in GROUPS
+            resident = {g: self.resident_blocks(lib, dev, g) for g in self.groups
                         if self.sp.C % g == 0}
             self._groups[dev, N] = choose_group(N, resident, self.sp.C)
         return self._groups[dev, N]
@@ -380,16 +436,18 @@ class Megastep(_StepKernel):
                  sp: SpeciesParams, n_steps: int, gauss_mode: str = "clt4",
                  sec_terms=(), inst_kind=None):
         super().__init__(model, tip_links, active_vars, inst_tip, sp,
-                         gauss_mode, sec_terms)
+                         gauss_mode, sec_terms, inst_kind)
         self.n_steps = n_steps
         self.body, self.F = make_megastep_body(
             model, tip_links, active_vars, inst_tip, sp, n_steps,
-            sec_terms=self.sec_terms, inst_kind=inst_kind)
+            sec_terms=self.sec_terms, inst_kind=self.inst_kind)
         self.state_rows = [_P * sp.V, _P * sp.V, 1, sp.V, 1, 7 * self.T]
-        self.const_rows = [max(self.F, 1), 3 * sp.K, 4 * sp.K, sp.K, sp.K,
-                           sp.V, sp.V, sp.V, sp.V, sp.V]
-        if self.sec_terms:
-            self.const_rows.append(8 * sp.V)
+        self.const_names = ["qfix", "gpos", "gquat"] + ["gaux"] * self.has_aux + [
+            "wpos", "wrot", "span", "cmin", "cmax", "amin", "amax"] + [
+            "sec"] * bool(self.sec_terms)
+        rows = dict(qfix=max(self.F, 1), gpos=3 * sp.K, gquat=4 * sp.K,
+                    gaux=3 * sp.K, wpos=sp.K, wrot=sp.K, sec=8 * sp.V)
+        self.const_rows = [rows.get(n, sp.V) for n in self.const_names]
 
     def __call__(self, state, consts, *, seed=None, salt=None, noise=None,
                  rates=None, wipe_u=None, wipe_g=None, keep=None, group=None):
@@ -399,6 +457,8 @@ class Megastep(_StepKernel):
         group size G (default: :meth:`group`'s choice).  Returns the new
         state tuple."""
         tensors = noise is not None
+        if len(consts) != len(self.const_names):
+            raise ValueError(f"want the consts {self.const_names}, got {len(consts)}")
         if not tensors and (seed is None or salt is None):
             raise ValueError("pass seed and salt, or the noise tensors")
         if tensors and bool(self.sec_terms) != (keep is not None):
@@ -426,20 +486,21 @@ class Megastep(_StepKernel):
         N = genes.shape[-1]
         lib = self._lib(N)
         G = self.group(lib, dev, N) if group is None else group
-        if G not in GROUPS or sp.C % G:
-            raise ValueError(f"group size {G} must be one of {GROUPS} and divide "
+        if G not in self.groups or sp.C % G:
+            raise ValueError(f"group size {G} must be one of {self.groups} and divide "
                              f"C = {sp.C}")
         for t, r, nm in zip(state, self.state_rows,
                             ("genes", "grads", "sfit", "sol", "sol_fit",
                              "sol_tips")):
             _check(t, (r, N), nm, dev)
-        if len(consts) != len(self.const_rows):
-            raise ValueError(f"want {len(self.const_rows)} consts, got {len(consts)}")
-        for t, r, nm in zip(consts, self.const_rows,
-                            ("qfix", "gpos", "gquat", "wpos", "wrot", "span",
-                             "cmin", "cmax", "amin", "amax", "sec")):
+        for t, r, nm in zip(consts, self.const_rows, self.const_names):
             _check(t, (r, N), nm, dev)
-        sec = consts[10] if self.sec_terms else genes            # unread
+        named = dict(zip(self.const_names, consts))
+        # the kernel's order: the pose-family rows, then sec and gaux
+        rows = [named[n] for n in ("qfix", "gpos", "gquat", "wpos", "wrot", "span",
+                                   "cmin", "cmax", "amin", "amax")]
+        sec = named.get("sec", genes)                            # unread without
+        gaux = named.get("gaux", named["gpos"])                  # (3K, N) either way
         steps_gens = self.n_steps * sp.gens
         if rng is None:
             _check(salt, (1, N), "salt", dev, torch.int32)
@@ -458,20 +519,21 @@ class Megastep(_StepKernel):
             salt = torch.zeros((1, N), dtype=torch.int32, device=dev)
             seed = 0
             rng_mode = 0
-        chain_i, chain_f, tip_slot, inst_tip = self._chain_on(dev)
+        chain_i, chain_f, tip_slot, inst_tip, kinds, cols = self._chain_on(dev)
         out = tuple(torch.empty_like(t) for t in state)
         fn = lib.megastep_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_uint, ctypes.c_uint]
-                       + [ctypes.c_void_p] * 34)
+                       + [ctypes.c_void_p] * 36 + [ctypes.c_int, ctypes.c_void_p])
         rc = fn(sp.V, sp.K, self.T, G, N, chain_i.shape[0], self.nbranch,
                 self.n_steps, sp.gens, sp.C, sp.mem_iters, _MEMETIC_CODE[sp.memetic],
                 sp.h, rng_mode, int(seed) & 0xFFFFFFFF, self.sec_mask,
                 _ptr(salt), *(_ptr(t) for t in state), *(_ptr(t) for t in out),
-                *(_ptr(t) for t in consts[:10]), _ptr(sec),
+                *(_ptr(t) for t in rows), _ptr(sec),
                 _ptr(noise), _ptr(rates), _ptr(wipe_u), _ptr(wipe_g), _ptr(keep),
                 _ptr(chain_i), _ptr(chain_f), _ptr(tip_slot), _ptr(inst_tip),
+                _ptr(gaux), _ptr(kinds), _ptr(cols), self.ncol,
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
             raise RuntimeError(f"megastep launch failed: CUDA error {rc}")
@@ -481,14 +543,14 @@ class Megastep(_StepKernel):
 
 class Fullstep(_StepKernel):
     """One bio2 step with no species bookkeeping — the port of the TPU
-    kernel ``make_fullstep_kernel`` (pose family, no secondary goals, as
-    there).  Call it on ``genes, grads (2V,N), qfix (max(F,1),N), gpos
-    (3K,N), gquat (4K,N), wpos, wrot (K,N), span, cmin, cmax (V,N)`` with
-    either ``noise (gens,V,C,N)`` and ``rates (gens,C,N)`` or ``seed`` and
-    ``salt`` (Philox, step word 0, clt4 gaussians); returns ``genes', grads', tips (7T,N),
-    fit (1,N)``.  On CPU tensors it runs the plain
-    :func:`make_fullstep_inner`, on CUDA tensors the ``fullstep_launch``
-    entry of ``csrc/megastep.cu``.
+    kernel ``make_fullstep_kernel`` (no secondary goals, as there).  Call it
+    on ``genes, grads (2V,N), qfix (max(F,1),N), gpos (3K,N), gquat (4K,N),
+    [gaux (3K,N),] wpos, wrot (K,N), span, cmin, cmax (V,N)`` (``gaux`` as
+    for :class:`Megastep`) with either ``noise (gens,V,C,N)`` and ``rates
+    (gens,C,N)`` or ``seed`` and ``salt`` (Philox, step word 0, clt4
+    gaussians); returns ``genes', grads', tips (7T,N), fit (1,N)``.  On CPU
+    tensors it runs the plain :func:`make_fullstep_inner`, on CUDA tensors
+    the ``fullstep_launch`` entry of the instance's source.
 
     ``Fullstep.launches`` counts kernel launches; it is incremented only
     where the CUDA kernel is launched.
@@ -497,18 +559,23 @@ class Fullstep(_StepKernel):
     launches = 0
 
     def __init__(self, model, tip_links, active_vars, inst_tip,
-                 sp: SpeciesParams):
-        super().__init__(model, tip_links, active_vars, inst_tip, sp, "clt4")
+                 sp: SpeciesParams, inst_kind=None):
+        super().__init__(model, tip_links, active_vars, inst_tip, sp, "clt4",
+                         inst_kind=inst_kind)
         self.inner, self.F = make_fullstep_inner(
-            model, tip_links, active_vars, inst_tip, sp)
-        self.rows = (("genes", _P * sp.V), ("grads", _P * sp.V),
-                     ("qfix", max(self.F, 1)), ("gpos", 3 * sp.K),
-                     ("gquat", 4 * sp.K), ("wpos", sp.K), ("wrot", sp.K),
-                     ("span", sp.V), ("cmin", sp.V), ("cmax", sp.V))
+            model, tip_links, active_vars, inst_tip, sp, inst_kind=self.inst_kind)
+        self.rows = ((("genes", _P * sp.V), ("grads", _P * sp.V),
+                      ("qfix", max(self.F, 1)), ("gpos", 3 * sp.K),
+                      ("gquat", 4 * sp.K))
+                     + (("gaux", 3 * sp.K),) * self.has_aux
+                     + (("wpos", sp.K), ("wrot", sp.K),
+                        ("span", sp.V), ("cmin", sp.V), ("cmax", sp.V)))
 
-    def __call__(self, genes, grads, qfix, gpos, gquat, wpos, wrot, span,
-                 cmin, cmax, *, noise=None, rates=None, seed=None, salt=None):
-        args = (genes, grads, qfix, gpos, gquat, wpos, wrot, span, cmin, cmax)
+    def __call__(self, *args, noise=None, rates=None, seed=None, salt=None):
+        if len(args) != len(self.rows):
+            raise ValueError(f"want the {len(self.rows)} tensors "
+                             f"{[n for n, _ in self.rows]}, got {len(args)}")
+        genes = args[0]
         tensors = noise is not None
         if not tensors and (seed is None or salt is None):
             raise ValueError("pass seed and salt, or noise and rates")
@@ -532,6 +599,10 @@ class Fullstep(_StepKernel):
         lib = self._lib(N)
         for t, (nm, r) in zip(args, self.rows):
             _check(t, (r, N), nm, dev)
+        named = {nm: t for t, (nm, _) in zip(args, self.rows)}
+        gaux = named.get("gaux", named["gpos"])                  # (3K, N) either way
+        args = [named[n] for n in ("genes", "grads", "qfix", "gpos", "gquat", "wpos",
+                                   "wrot", "span", "cmin", "cmax")]
         if noise is None:
             _check(salt, (1, N), "salt", dev, torch.int32)
             rng_mode = _RNG_CODE[self.gauss_mode]
@@ -542,7 +613,7 @@ class Fullstep(_StepKernel):
             salt = torch.zeros((1, N), dtype=torch.int32, device=dev)
             seed = 0
             rng_mode = 0
-        chain_i, chain_f, tip_slot, inst_tip = self._chain_on(dev)
+        chain_i, chain_f, tip_slot, inst_tip, kinds, cols = self._chain_on(dev)
         genes_o, grads_o = torch.empty_like(genes), torch.empty_like(genes)
         tips_o = torch.empty((7 * self.T, N), dtype=torch.float32, device=dev)
         fit_o = torch.empty((1, N), dtype=torch.float32, device=dev)
@@ -550,13 +621,14 @@ class Fullstep(_StepKernel):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_uint]
-                       + [ctypes.c_void_p] * 22)
+                       + [ctypes.c_void_p] * 24 + [ctypes.c_int, ctypes.c_void_p])
         rc = fn(sp.V, sp.K, self.T, N, chain_i.shape[0], self.nbranch, sp.gens, sp.C,
                 sp.mem_iters, _MEMETIC_CODE[sp.memetic], sp.h, rng_mode,
                 int(seed) & 0xFFFFFFFF, _ptr(salt),
                 *(_ptr(t) for t in args), _ptr(noise), _ptr(rates),
                 _ptr(genes_o), _ptr(grads_o), _ptr(tips_o), _ptr(fit_o),
                 _ptr(chain_i), _ptr(chain_f), _ptr(tip_slot), _ptr(inst_tip),
+                _ptr(gaux), _ptr(kinds), _ptr(cols), self.ncol,
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         if rc != 0:
             raise RuntimeError(f"fullstep launch failed: CUDA error {rc}")

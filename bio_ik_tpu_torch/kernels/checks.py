@@ -17,7 +17,13 @@ import numpy as np
 import torch
 
 __all__ = ["megastep_inputs", "species_inputs", "sec_rows", "lane_agreement",
-           "max_abs_err"]
+           "max_abs_err", "MISS"]
+
+# how far a non-pose goal instance of megastep_inputs misses the frame it
+# is placed at (_kind_rows): metres, radians.  Parents 1e-3 rad off q*
+# move the tip by ~1e-3 m and ~3e-3 rad, so the relu kinds' terms act on
+# ≥ 99.8 % of the parents of pr2_arm
+MISS = (0.002, 0.01)
 
 
 def sec_rows(model, sec_terms, N: int, rng, weight: float = 0.05):
@@ -54,36 +60,103 @@ def sec_rows(model, sec_terms, N: int, rng, weight: float = 0.05):
     return np.ascontiguousarray(np.concatenate(out, 0), dtype=np.float32)
 
 
-def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
+def _kind_rows(kind, pos, quat, miss=MISS):
+    """numpy goal rows ``(gpos (3, n), gquat (4, n), gaux (3, n), wpos (n,),
+    wrot (n,))`` of one instance of ``kind`` (engine._goal_rows' packing)
+    at tip frames ``pos (n, 3)``, ``quat (n, 4)`` (rotation R).  The pose
+    family holds the frame with bench.py's weights.  Every other kind
+    misses the frame, so its term and its gradient act at every lane, by
+    ``miss = (metres, radians)``: line, plane, max_distance, min_distance
+    and the cone's apex by the metres; lookat's target off R·x (1 m away:
+    near its target the lookat error turns the tips' rounding into large
+    fitness differences), the cone's R·z past its allowance, direction's
+    R·y off its direction and side's R·x across it (R·x · dir =
+    sin(radians) > 0) by the radians."""
+    from ..math.quat import quat_rotate
+
+    n = pos.shape[0]
+    q = torch.from_numpy(quat)
+
+    def rot(axis):
+        return quat_rotate(q, torch.tensor(axis, dtype=q.dtype).expand(n, 3)).numpy()
+
+    def tile(x):
+        return np.tile(np.asarray(x, np.float64)[:, None], (1, n))
+
+    ident = tile((0.0, 0.0, 0.0, 1.0))
+    zeros = np.zeros((3, n))
+    ones, nil = np.ones(n), np.zeros(n)
+    m, a = miss
+    c, s = np.cos(a), np.sin(a)
+    # the angular kinds at the weight that makes their miss cost what the
+    # metric kinds' does
+    wa = np.full(n, (m / a) ** 2)
+    if kind in ("position", "orientation", "pose"):
+        w = {"position": (ones, nil), "orientation": (nil, ones)}.get(
+            kind, (ones, np.full(n, 0.25)))
+        return pos.T, quat.T, zeros, w[0], w[1]
+    if kind == "lookat":
+        return (pos + 1.0 * rot((c, s, 0.0))).T, ident, tile((1.0, 0.0, 0.0)), wa, nil
+    if kind == "line":
+        d = rot((0.0, 0.0, 1.0))
+        return (pos + 0.1 * d + m * rot((1.0, 0.0, 0.0))).T, ident, d.T, ones, nil
+    if kind == "plane":
+        nrm = rot((0.0, 1.0, 0.0))
+        return (pos + m * nrm).T, ident, nrm.T, ones, nil
+    if kind in ("max_distance", "min_distance"):
+        dist = 0.1 - m if kind == "max_distance" else 0.1 + m
+        return (pos + np.asarray([0.1, 0.0, 0.0])).T, ident, zeros, ones, np.full(n, dist)
+    if kind == "cone":
+        allow = 0.05
+        gq = np.concatenate([rot((0.0, np.sin(allow + a), np.cos(allow + a))).T,
+                             np.full((1, n), allow)])
+        return ((pos + m * rot((1.0, 0.0, 0.0))).T, gq, tile((0.0, 0.0, 1.0)), wa,
+                np.full(n, 0.5))
+    # direction: R·y off dir; side: R·x across dir
+    axis = (0.0, 1.0, 0.0) if kind == "direction" else (1.0, 0.0, 0.0)
+    return rot((s, c, 0.0)).T, ident, tile(axis), wa, nil
+
+
+def megastep_inputs(model, tip, sp, n_steps: int, N: int, seed: int = 7,
                     spread: float = 1e-3, with_noise: bool = True,
-                    sec_terms=()):
+                    sec_terms=(), inst_kind=None, inst_tip=None, miss=MISS):
     """numpy ``(state, consts, noise)`` for one megastep launch on ``N``
-    lanes of ``model``/``tip`` (one pose goal, K = 1), made from ``seed``:
-    a reachable target per species pair (exact FK of a uniform q*,
-    pose weights of bench.py's goal), both parents at q* plus gaussian
-    noise of ``spread`` rad — the state of a solve under way — the model's
-    bounds, and noise tensors with the real rate ladder.
-    ``noise = (noise, rates, wipe_u, wipe_g)``, or None without
-    ``with_noise`` (in-kernel RNG runs).  With ``sec_terms`` the consts end
-    with the packed secondary rows (:func:`sec_rows`) and ``noise`` with
-    the pre-selection uniforms ``keep (steps·gens, 1, N)``, drawn after
-    everything else (the other inputs do not change).
+    lanes of ``model``, made from ``seed``: a reachable target per species
+    pair (exact FK of a uniform q*), both parents at q* plus gaussian noise
+    of ``spread`` rad — the state of a solve under way — the model's
+    bounds, and noise tensors with the real rate ladder.  ``tip`` is one
+    tip link or a list; goal instance k (K = ``sp.K``) sits on tip
+    ``inst_tip[k]`` (default ``k`` mod T) with kind ``inst_kind[k]``
+    (default pose, with bench.py's weights), its rows those of
+    ``engine._goal_rows`` met at q* (the pose family) or missed by
+    ``miss`` = (metres, radians) (:func:`_kind_rows`); the consts carry
+    ``gaux`` after ``gquat`` when a kind needs it
+    (bio2_fullstep.AUX_KINDS).  ``noise = (noise, rates, wipe_u, wipe_g)``,
+    or None without ``with_noise`` (in-kernel RNG runs).  With
+    ``sec_terms`` the consts end with the packed secondary rows
+    (:func:`sec_rows`) and ``noise`` with the pre-selection uniforms
+    ``keep (steps·gens, 1, N)``, drawn after everything else (the other
+    inputs do not change).
 
     Far from a solution the memetic line search divides differences of
     nearly equal fitness values, so two correct implementations that round
     differently part ways on most lanes; near one they agree."""
     from ..kinematics import make_fk
+    from .bio2_fullstep import AUX_KINDS
 
-    V = sp.V
+    tips = [tip] if isinstance(tip, str) else list(tip)
+    T, K, V = len(tips), sp.K, sp.V
+    inst_kind = list(inst_kind or ["pose"] * K)
+    inst_tip = list(inst_tip if inst_tip is not None else [k % T for k in range(K)])
     rng = np.random.default_rng(seed)
     f32 = np.float32
     b = model._np_bounds
     # one target per species pair: the two lanes of an island share it
     qstar = np.repeat(rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V)),
                       2, axis=0)[:N].astype(f32)
-    tg = make_fk(model, [tip], device="cpu")(torch.from_numpy(qstar))
-    pos = tg.pos[:, 0].numpy().T
-    quat = tg.quat[:, 0].numpy().T
+    tg = make_fk(model, tips, device="cpu")(torch.from_numpy(qstar))
+    goal = [_kind_rows(kd, tg.pos[:, t].numpy(), tg.quat[:, t].numpy(), miss)
+            for kd, t in zip(inst_kind, inst_tip)]
     genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
     genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
                     np.tile(b["clip_max"], 2)[:, None]).astype(f32)
@@ -91,20 +164,23 @@ def megastep_inputs(model, tip: str, sp, n_steps: int, N: int, seed: int = 7,
     def rows(x):
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
 
+    def stack(i):
+        return np.ascontiguousarray(np.concatenate([np.reshape(g[i], (-1, N))
+                                                    for g in goal]), dtype=f32)
+
     state = (
         genes,
         (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
         np.full((1, N), np.inf, f32),                       # sfit
         genes[:V].copy(),                                   # sol
         np.full((1, N), 1e30, f32),                         # sol_fit
-        np.zeros((7, N), f32),                              # sol_tips
+        np.zeros((7 * T, N), f32),                          # sol_tips
     )
-    consts = (
-        np.zeros((1, N), f32),                              # qfix (none)
-        np.ascontiguousarray(pos, dtype=f32),               # gpos
-        np.ascontiguousarray(quat, dtype=f32),              # gquat
-        np.ones((sp.K, N), f32),                            # wpos
-        np.full((sp.K, N), 0.25, f32),                      # wrot
+    consts = (np.zeros((1, N), f32), stack(0), stack(1))    # qfix (none), gpos, gquat
+    if any(kd in AUX_KINDS for kd in inst_kind):
+        consts += (stack(2),)                               # gaux
+    consts += (
+        stack(3), stack(4),                                 # wpos, wrot
         rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
         rows(b["min"]), rows(b["max"]),
     )

@@ -14,10 +14,11 @@ with CUDA events in one process on one card, in the order given:
     size the wrapper chooses;
   * ``parent`` — the previous version of the source, from ``--parent DIR``
     holding its ``megastep.cu`` and headers.  It is launched through the
-    C API of version 2 (``megastep_abi_version() == 2``, the change's own
-    argument list, at the group size the wrapper's rule picks from the
-    parent build's occupancy); a build of another version is refused, as
-    its list differs.
+    C API of version 2 (``megastep_abi_version() == 2``: the argument list
+    before the goal kinds' ``gaux``, ``inst_kind``, ``cols`` and ``ncol``,
+    at the group size the wrapper's rule picks from the parent build's
+    occupancy); a build of another version is refused, as its list
+    differs.
 
 Prints one JSON line per (shape, version), a summary line, and both
 builds' ``-Xptxas -v`` rows (registers, stack, spill per kernel).  The
@@ -41,7 +42,7 @@ import torch
 
 from bio_ik_tpu_torch import RobotModel, asset_path
 from bio_ik_tpu_torch.interop import tree_from_numpy
-from bio_ik_tpu_torch.kernels.bio2_megastep import (GROUPS, Megastep, _MEMETIC_CODE,
+from bio_ik_tpu_torch.kernels.bio2_megastep import (Megastep, _MEMETIC_CODE,
                                                     _ptr, choose_group)
 from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
 from bio_ik_tpu_torch.kernels.build import (BUILD_DIR, NVCC_FLAGS, _nvcc, build_all,
@@ -73,9 +74,9 @@ def parent_launch(lib, mega, state, consts, seed, salt):
     N = state[0].shape[-1]
     if not hasattr(mega, "parent_group"):
         mega.parent_group = choose_group(N, {g: mega.resident_blocks(lib, dev, g)
-                                             for g in GROUPS if sp.C % g == 0}, sp.C)
+                                             for g in mega.groups if sp.C % g == 0}, sp.C)
     G = mega.parent_group
-    chain_i, chain_f, tip_slot, inst_tip = mega._chain_on(dev)
+    chain_i, chain_f, tip_slot, inst_tip = mega._chain_on(dev)[:4]
     out = tuple(torch.empty_like(t) for t in state)
     sec = consts[10] if mega.sec_terms else state[0]
     unread = state[0]

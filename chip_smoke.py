@@ -5,23 +5,31 @@
     python3 chip_smoke.py --only build,check
 
 Drives ``bio_ik_tpu_torch`` (never JAX) through its paths — the fullstep
-tier (bench.py's configuration, and the reference's recommended
-regularized one), the species tier (floating and planar chains, with and
-without the regularizers) and the FP32 peak calibration — and holds each
+tier (bench.py's configuration, the reference's recommended regularized
+one, and the JAX suite's two PR2 dual-arm rows on the wide megastep
+instance), the species tier (floating and planar chains, with and without
+the regularizers) and the FP32 peak calibration — and holds each
 hand-written CUDA kernel against its plain torch version.  Phases, each
 printing one JSON line and its seconds; any failure raises and exits
 non-zero:
 
   build           — card name and power limit, torch/CUDA versions, nvcc
-                    build of every kernel source (megastep.cu, species.cu,
-                    peak.cu, in parallel), their ptxas reports and, per
-                    kernel instance, registers, stack and spill;
+                    build of every kernel source (megastep.cu,
+                    megastep_wide.cu, species.cu, peak.cu, in parallel),
+                    each source's nvcc seconds, their ptxas reports and,
+                    per kernel instance, registers, stack and spill; the
+                    wide (17, 2, 2) instances' shared memory per block and
+                    resident blocks at each group size;
   check           — megastep vs plain version, noise-tensor mode, main-path
                     sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
                     steps, N=4096): ≥ 85 % of lanes agree, beside the plain
                     version on the CPU vs the card; every group size G
                     bitwise equal to G = 1; exact FK and fitness with no
-                    selection on all 131 072 lanes (atol 1e-5);
+                    selection on all 131 072 lanes (atol 1e-5); the wide
+                    instance (PR2 dual arm, two PoseGoals) likewise at
+                    16 384 lanes, against its floor and two wrong plain
+                    versions (the instances' tips swapped, the rotation
+                    weights zeroed);
   rng             — in-kernel Philox vs the plain version's at each main-path
                     launch's lane count (≥ 85 %), clt4 moments, rate bins
                     (the 4-bit fields of a generation's rate call), bitwise
@@ -29,13 +37,28 @@ non-zero:
   sec_check       — the secondary-goal megastep (the regularizers' terms,
                     and all four) at the regularized path's 131 072 lanes in
                     both RNG modes (≥ 85 %, beside the CPU-vs-card floor);
-                    the species kernel with the same terms, bitwise;
+                    the species kernel with the same terms, bitwise; the
+                    wide instance with the multigoal path's PoseGoal +
+                    LookAtGoal and regularizers (controls: the lookat axis
+                    negated, the tips swapped);
   fullstep_check  — the fullstep kernel vs make_fullstep_inner at 131 072
                     lanes in both RNG modes (≥ 85 %), its time and bound;
+                    the wide fullstep once per non-pose goal kind beside a
+                    PoseGoal, each against its floor;
   main            — bench.py's configuration through AdaptiveBatchSolver at
                     B = 65 536: success, median position error, solves/s,
                     launches per solve_batch (4), determinism, the flags
                     re-derived from the returned q, a small card/CPU solve;
+  dual_main       — the JAX suite's pr2_dual_pose2 (two PoseGoals at 1 mm,
+                    tools/bench_suite.py:125-132) at B = 16 384: success,
+                    median position error of the worse tip, batch time,
+                    launches per solve_batch (4), the profiled idle share;
+  multigoal_main  — the JAX suite's pr2_dual_multigoal (PoseGoal +
+                    LookAtGoal + MinimalDisplacement + AvoidJointLimits at
+                    1 cm, tools/bench_suite.py:216-227) at B = 65 536: the
+                    same fields, the lookat error beside a solve with the
+                    LookAtGoal at weight 0, the secondary fitness beside a
+                    solve without the regularizers;
   regularized_main — PoseGoal + MinimalDisplacementGoal(0.05) +
                     AvoidJointLimitsGoal(0.05) on bench_suite's ladder at
                     B = 65 536: the same fields, the median secondary fitness
@@ -59,6 +82,7 @@ non-zero:
                     plain version, its FLOP/byte bound and the bound of the
                     generator's integer work (its Philox calls, one call's
                     SASS counted, at the card's IMAD, ALU and issue rates);
+                    the wide instance at both dual paths' launch shapes;
   profile         — torch.profiler over one solve_batch of each path: device
                     time by kernel, device busy and idle share; no torch
                     random-number kernel on the species paths;
@@ -108,7 +132,7 @@ ISSUE_PER_SM_CLK = 128
 # add is one FLOP, so kernels built without FMA (species, peak) reach at
 # most half the FMA-counted PEAK_FP32
 FP32_PER_SM_CLK = 128
-SOURCES = ("megastep", "species", "peak")
+SOURCES = ("megastep", "megastep_wide", "species", "peak")
 # the reference's recommended configuration (tools/bench_suite.py:198-210):
 # PoseGoal + MinimalDisplacementGoal(0.05) + AvoidJointLimitsGoal(0.05)
 REG_PHASES = ((1, 32), (2, 64), (4, 128), (8, 256))
@@ -119,6 +143,38 @@ REG_TERMS = ("beta", "gamma")
 ALL_TERMS = ("alpha", "beta", "gamma", "delta")
 # the species tier with the same regularizers: free_arm at this batch
 B_SPECIES_SEC = 16384
+# the JAX suite's PR2 dual-arm rows on the wide megastep instance
+# (V, K, T) = (17, 2, 2): pr2_dual_pose2 (tools/bench_suite.py:125-132) and
+# pr2_dual_multigoal (:216-227)
+DUAL_URDF = "pr2_dual.urdf"
+DUAL_TIPS = ("r_gripper_tool_frame", "l_gripper_tool_frame")
+DUAL_PHASES = ((1, 64), (2, 64), (4, 128), (8, 128))
+DUAL_FRACTIONS = (0.25, 0.08, 0.03)
+B_DUAL = 16384
+MG_PHASES = ((1, 32), (2, 32), (4, 64), (8, 128))
+MG_FRACTIONS = (0.3, 0.1, 0.04)
+B_MG = 65536
+DUAL_QUEUE = 4
+MG_WEIGHT = 0.2
+LOOKAT = dict(axis=(1.0, 0.0, 0.0), target=(1.0, 0.0, 0.5), weight=0.5)
+POSE2_KINDS = ("pose", "pose")
+MG_KINDS = ("pose", "lookat")
+# lanes of the wide instance's checks against its plain version, and of
+# the plain version on the CPU for their floor
+N_WIDE_CHECK = 16384
+N_WIDE_FLOOR = 4096
+# a wrong plain version agrees with the kernel on fewer lanes than this
+CONTROL_LIMIT = 0.5
+# the wrong kind of each goal kind's control: one that reads the same rows
+KIND_CONTROL = {"lookat": "line", "line": "plane", "plane": "line",
+                "max_distance": "min_distance", "min_distance": "max_distance",
+                "cone": "direction", "direction": "side", "side": "direction"}
+# the wide exact-fitness checks' parents: this much noise (rad) about q*,
+# so the relu kinds' terms act on some lanes and not on others, and every
+# kind at weight 1 (checks.megastep_inputs' miss in metres and radians
+# alike)
+FK_SPREAD = 0.3
+FK_MISS = (0.002, 0.002)
 
 
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -135,12 +191,12 @@ def smi_line():
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def phase_shapes(phases=PHASES, fractions=FRACTIONS):
+def phase_shapes(phases=PHASES, fractions=FRACTIONS, B=B_MAIN):
     """(lanes, n_steps) of a ladder's four megastep launches: B scenarios ×
     islands × 2 species, B cut to int(B·fraction) in each retry phase."""
     out = []
     for i, (islands, steps) in enumerate(phases):
-        b = B_MAIN if i == 0 else max(1, int(B_MAIN * fractions[i - 1]))
+        b = B if i == 0 else max(1, int(B * fractions[i - 1]))
         out.append((b * islands * 2, steps))
     return out
 
@@ -230,6 +286,13 @@ def bitwise_frac(a, b, N):
         .all(0).float().mean())
 
 
+def agree_frac(a, b):
+    """Share of lanes on which two output tuples agree (checks.lane_agreement)."""
+    from bio_ik_tpu_torch.kernels.checks import lane_agreement
+
+    return float(lane_agreement(a, b).float().mean())
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -259,23 +322,36 @@ class Smoke:
         self.sp_cpu_models = {u: RobotModel.from_urdf_file(asset_path(u),
                                                            device="cpu")
                               for u, _, _ in SPECIES_PATHS}
-        self.kernels = {name: {} for name in ("megastep", "species", "fullstep",
-                                              "peak")}
+        self.dual = RobotModel.from_urdf_file(asset_path(DUAL_URDF))
+        self.dual_cpu = RobotModel.from_urdf_file(asset_path(DUAL_URDF), device="cpu")
+        self.kernels = {name: {} for name in ("megastep", "megastep_dual",
+                                              "megastep_dual_sec", "species",
+                                              "fullstep", "fullstep_dual", "peak")}
 
     # -------------------------------------------------------------- 1 --
     def build(self):
         import torch
-        from bio_ik_tpu_torch.kernels.build import (build_all, ptxas_report,
-                                                    ptxas_table)
+        from bio_ik_tpu_torch.kernels.build import (BUILD_SECONDS, build_all,
+                                                    ptxas_report, ptxas_table)
 
         secs = build_all(list(SOURCES))
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": secs,
+              "nvcc_s_by_source": dict(BUILD_SECONDS),
               "ptxas": {n: ptxas_report(n).strip().splitlines()
                         for n in SOURCES}})
         for n in SOURCES:
             for row in ptxas_table(n):
                 emit({"phase": "build", "source": n, **row})
+        # the wide instances: shared memory per block and resident blocks
+        for kinds, terms in ((POSE2_KINDS, ()), (MG_KINDS, REG_TERMS)):
+            mega, _ = self._wide(1, kinds, terms)
+            lib = mega._lib(2)
+            emit({"phase": "build", "instance": [17, 2, 2], "inst_kind": kinds,
+                  "sec_terms": terms, "dependency_columns": mega.ncol,
+                  "smem_bytes_by_group": {g: mega.smem_bytes(lib, g) for g in mega.groups},
+                  "resident_blocks_by_group": {g: mega.resident_blocks(lib, self.dev, g)
+                                               for g in mega.groups}})
         self.philox_sass = philox_sass_count()
         emit({"phase": "build", "philox_call_sass": self.philox_sass})
 
@@ -301,9 +377,100 @@ class Smoke:
         return (tree_from_numpy(state, dev), tree_from_numpy(consts, dev),
                 None if noise is None else tree_from_numpy(noise, dev))
 
+    def _wide(self, n_steps, kinds, terms=(), gens=8, mem_iters=8, memetic="q",
+              model=None, inst_tip=(0, 1)):
+        """The wide (17, 2, 2) megastep on the PR2 dual arm's two grippers."""
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
+
+        sp = SpeciesParams(V=17, K=2, C=16, gens=gens, mem_iters=mem_iters,
+                           memetic=memetic)
+        return Megastep(model or self.dual, list(DUAL_TIPS), list(range(17)),
+                        list(inst_tip), sp, n_steps, sec_terms=terms,
+                        inst_kind=list(kinds)), sp
+
+    def _wide_inputs(self, sp, n_steps, N, kinds, terms=(), with_noise=True, seed=7):
+        from bio_ik_tpu_torch.interop import tree_from_numpy
+        from bio_ik_tpu_torch.kernels.checks import megastep_inputs
+
+        state, consts, noise = megastep_inputs(
+            self.dual_cpu, list(DUAL_TIPS), sp, n_steps, N, seed, inst_kind=list(kinds),
+            sec_terms=terms, with_noise=with_noise)
+        return (tree_from_numpy(state, self.dev), tree_from_numpy(consts, self.dev),
+                None if noise is None else tree_from_numpy(noise, self.dev))
+
+    def _wide_check(self, kinds, terms=()):
+        """The wide megastep against its plain version (two steps, noise
+        tensors, N_WIDE_CHECK lanes) at the group size chosen and, bitwise,
+        every group size against G = 1; in-kernel Philox against the plain
+        version's; the floor (the plain version on the CPU against itself on
+        the card, first N_WIDE_FLOOR lanes) and two controls, wrong plain
+        versions: the instances' tips swapped, and the lookat axis negated
+        (or, with two PoseGoals, the rotation weights zeroed).  Fails below
+        min(0.85, floor − 0.03) or when a control reaches CONTROL_LIMIT."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw, philox_draw
+
+        N, n = N_WIDE_CHECK, N_WIDE_FLOOR
+        mega, sp = self._wide(2, kinds, terms)
+        state, consts, noise = self._wide_inputs(sp, 2, N, kinds, terms)
+        keep = noise[4] if terms else None
+
+        def kernel(group=None):
+            return mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
+                        wipe_g=noise[3], keep=keep, group=group)
+
+        def plain(m, st, cs, nz, kp):
+            return m.body(st, cs, array_draw(*nz[:4], sp.gens, keep=kp))
+
+        k_out = kernel()
+        g1 = kernel(1)
+        p_out = plain(mega, state, consts, noise, keep)
+        torch.cuda.synchronize()
+        row = {"inst_kind": kinds, "sec_terms": terms, "lanes": N,
+               "group_chosen": mega.group(mega._lib(N), self.dev, N),
+               "agree_frac": agree_frac(k_out, p_out),
+               "bitwise_vs_g1_frac": {g: bitwise_frac(kernel(g), g1, N)
+                                      for g in mega.groups}}
+        cut = lambda xs: tuple(x[..., :n].cpu() for x in xs)  # noqa: E731
+        cpu_mega, _ = self._wide(2, kinds, terms, model=self.dual_cpu)
+        c_out = plain(cpu_mega, cut(state), cut(consts), cut(noise),
+                      None if keep is None else keep[..., :n].cpu())
+        row["plain_cpu_vs_card_agree_frac"] = agree_frac(c_out, cut(p_out))
+        swapped, _ = self._wide(2, kinds, terms, inst_tip=(1, 0))
+        wrong = list(consts)
+        if "lookat" in kinds:
+            i = mega.const_names.index("gaux")
+            wrong[i] = -wrong[i]
+            label = "control_lookat_axis_negated_agree_frac"
+        else:
+            i = mega.const_names.index("wrot")
+            wrong[i] = torch.zeros_like(wrong[i])
+            label = "control_rotation_weight_zero_agree_frac"
+        row["control_tips_swapped_agree_frac"] = agree_frac(
+            g1, plain(swapped, state, consts, noise, keep))
+        row[label] = agree_frac(g1, plain(mega, state, tuple(wrong), noise, keep))
+        salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+        k1 = mega(state, consts, seed=4321, salt=salt)
+        p1 = mega.body(state, consts, philox_draw(4321, salt, sp.V, sp.C, keep=bool(terms)))
+        torch.cuda.synchronize()
+        row["philox_agree_frac"] = agree_frac(k1, p1)
+        row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
+        row["control_limit"] = CONTROL_LIMIT
+        controls = [row["control_tips_swapped_agree_frac"], row[label]]
+        if min(row["agree_frac"], row["philox_agree_frac"]) < row["agree_limit"]:
+            raise AssertionError(f"the wide megastep agrees with its plain version "
+                                 f"below its limit: {row}")
+        if min(row["bitwise_vs_g1_frac"].values()) < 1.0:
+            raise AssertionError(f"a group size changes the wide megastep: {row}")
+        if max(controls) >= CONTROL_LIMIT:
+            raise AssertionError(f"a wrong plain version agrees with the wide "
+                                 f"megastep: {row}")
+        return row
+
     # -------------------------------------------------------------- 2 --
     def check(self):
-        from bio_ik_tpu_torch.kernels.bio2_megastep import GROUPS, Megastep, array_draw
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep, array_draw
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
 
         N = 4096
@@ -349,7 +516,7 @@ class Smoke:
         # depend on G), and the plain version's agreement
         by_group = {}
         outs = {}
-        for G in GROUPS:
+        for G in mega.groups:
             outs[G] = mega(state, consts, noise=noise[0], rates=noise[1],
                            wipe_u=noise[2], wipe_g=noise[3], group=G)
             by_group[G] = {"agree_frac": float(lane_agreement(outs[G], p_out)
@@ -372,6 +539,34 @@ class Smoke:
             raise AssertionError(f"exact FK/fitness disagree: {err_tips}, {err_fit}")
         self.kernels["megastep"].update(agree_frac=frac,
                                         max_abs_err=max(err_tips, err_fit))
+        self._wide_fk_check("megastep_dual", POSE2_KINDS)
+        row = self._wide_check(POSE2_KINDS)
+        emit({"phase": "check", "instance": [17, 2, 2], **row})
+        self.kernels["megastep_dual"].update(
+            agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
+            floor_agree_frac=row["plain_cpu_vs_card_agree_frac"])
+
+    def _wide_fk_check(self, name, kinds, terms=()):
+        """No selection (zero generations, no memetic, one step) on every
+        lane of the path's first launch: the incumbent then holds the exact
+        FK tips and the exact fitness of every goal instance at parent 0 —
+        the kernel's max_abs_err against the plain version (atol 1e-5)."""
+        from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw
+        from bio_ik_tpu_torch.kernels.checks import max_abs_err
+
+        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+        mega, sp = self._wide(1, kinds, terms, gens=0, mem_iters=0, memetic="")
+        state, consts, noise = self._wide_inputs(sp, 1, N, kinds, terms, seed=11)
+        keep = noise[4] if terms else None
+        k = mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
+                 wipe_g=noise[3], keep=keep)
+        p = mega.body(state, consts, array_draw(*noise[:4], 0, keep=keep))
+        err = max(max_abs_err(k[5], p[5]), max_abs_err(k[4], p[4]))
+        emit({"phase": "check", "instance": [17, 2, 2], "inst_kind": kinds,
+              "fk_lanes": N, "fk_fit_max_abs_err": err})
+        self.kernels[name]["max_abs_err"] = err
+        if not err <= 1e-5:
+            raise AssertionError(f"wide exact FK/fitness disagree: {err}")
 
     # -------------------------------------------------------------- 3 --
     def rng(self):
@@ -379,7 +574,7 @@ class Smoke:
         from bio_ik_tpu_torch.kernels.bio2_fullstep import (
             clt4_from_fields, packed_fields, philox_words, rate_from_bits,
             rates_from_words)
-        from bio_ik_tpu_torch.kernels.bio2_megastep import GROUPS, philox_draw
+        from bio_ik_tpu_torch.kernels.bio2_megastep import philox_draw
         from bio_ik_tpu_torch.kernels.checks import lane_agreement
 
         mega, sp = self._mega(2)
@@ -409,7 +604,7 @@ class Smoke:
         k2 = mega(state, consts, seed=seed, salt=salt)
         bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
         groups_bitwise = {G: bitwise_frac(mega(state, consts, seed=seed, salt=salt,
-                                               group=G), k1, N) for G in GROUPS}
+                                               group=G), k1, N) for G in mega.groups}
         # one scenario's salt changes (its two lanes of one island)
         salt2 = salt.clone()
         salt2[0, 100:102] ^= 0x5A5A5A5A
@@ -492,11 +687,12 @@ class Smoke:
                             torch.arange(B, dtype=torch.int64)], -1).to(dev)
         return s, data, keys, fk, tg
 
-    def _drive(self, s, data, keys, fk, tg, queue, nlaunch):
+    def _drive(self, s, data, keys, fk, tg, queue, nlaunch, slots=(0,)):
         """One path through ``s.solve_batch``: warm-up, launches of one call
         (counts set to 0 just before it), determinism, best of 3 × ``queue``
-        queued batches, success, median position error and the success
-        flags re-derived from the returned q."""
+        queued batches, success, median position error (the worst of the
+        position-goal tips ``slots``) and the success flags re-derived from
+        the returned q."""
         import numpy as np
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
@@ -515,7 +711,8 @@ class Smoke:
         times = queued_ms(s, keys, data, queue)
         dt = min(times) / 1e3
         success = float(res.success.float().mean())
-        perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
+        sl = list(slots)
+        perr = (fk(res.q).pos[:, sl] - tg.pos[:, sl]).norm(dim=-1).amax(-1)
         med = float(perr.median())
         # the returned success flags re-derived from the returned q alone:
         # exact FK, then the acceptance test (problem.cpp:259-341)
@@ -555,6 +752,130 @@ class Smoke:
         self.kernels["megastep"]["launches"] = out["launches_per_solve_batch"]
         if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 1.7e-6):
             raise AssertionError(f"quality below the JAX path's: {out}")
+
+    def _dual_bench(self, B, goals, cfg, phases, fractions):
+        """A PR2 dual-arm row of the JAX suite through AdaptiveBatchSolver
+        (tools/bench_suite.py run_config): targets from FK of
+        numpy.random.default_rng(0) uniform draws in the bounds, each
+        position/pose goal given its tip's, seeded at neutral_q().  Returns
+        the fields of :meth:`_bench` and the position-goal tips' slots."""
+        import numpy as np
+        import torch
+        from bio_ik_tpu_torch import AdaptiveBatchSolver, make_fk
+        from bio_ik_tpu_torch.interop import tree_map
+
+        model = self.dual
+        s = AdaptiveBatchSolver(model, goals, cfg, phases=phases, fractions=fractions)
+        p = s.problem
+        fk = make_fk(model, p.tip_links)
+        b = model._np_bounds
+        qg = np.random.default_rng(0).uniform(
+            b["min"], b["max"], size=(B, model.nvars)).astype(np.float32)
+        tg = fk(torch.as_tensor(qg, device=model.device))
+        data = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
+                        s.make_data(torch.as_tensor(model.neutral_q())))
+        slots = set()
+        for grp, gd in zip(p.primary, data["primary"]):
+            if grp.goal_type not in ("position", "pose"):
+                continue
+            for k, slot in enumerate(grp.tip_slots.tolist()):
+                slots.add(slot)
+                gd["position"][:, k] = tg.pos[:, slot]
+                if "orientation" in gd:
+                    gd["orientation"][:, k] = tg.quat[:, slot]
+        keys = torch.stack([torch.zeros(B, dtype=torch.int64),
+                            torch.arange(B, dtype=torch.int64)], -1).to(model.device)
+        return s, data, keys, fk, tg, tuple(sorted(slots))
+
+    def dual_main(self):
+        """The JAX suite's pr2_dual_pose2: a PoseGoal on each gripper at
+        1 mm (dtwist = 1e-3), its ladder, B = 16 384, on the wide pose-only
+        megastep."""
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import SolverConfig
+
+        s, data, keys, fk, tg, slots = self._dual_bench(
+            B_DUAL, [G.PoseGoal(link=t) for t in DUAL_TIPS],
+            SolverConfig(mode="bio2_memetic", dtwist=1e-3), DUAL_PHASES, DUAL_FRACTIONS)
+        eng = s.solvers[0].engine
+        assert eng.mega.source == "megastep_wide" and not eng.sec_terms, eng.sec_terms
+        _, _, out = self._drive(s, data, keys, fk, tg, DUAL_QUEUE, len(DUAL_PHASES), slots)
+        prof = self._profile(s, data, keys)
+        out = {"phase": "dual_main", **out, "device_idle_share": prof["device_idle_share"],
+               "profile": prof, "gpu": smi_line()}
+        emit(out)
+        self.kernels["megastep_dual"]["launches"] = out["launches_per_solve_batch"]
+        if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 3.4e-6):
+            raise AssertionError(f"pr2_dual_pose2 below its limits: {out}")
+
+    def multigoal_main(self):
+        """The JAX suite's pr2_dual_multigoal: a PoseGoal on the right
+        gripper, a LookAtGoal on the left one, MinimalDisplacement and
+        AvoidJointLimits (0.2 each) at 1 cm, its ladder, B = 65 536, on the
+        wide secondary-goal megastep; the lookat error beside a solve of
+        the same targets without the LookAtGoal, the secondary fitness
+        beside one without the two regularizers."""
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import SolverConfig
+        from bio_ik_tpu_torch.problem import _EVALUATORS
+
+        pose = G.PoseGoal(link=DUAL_TIPS[0])
+        look = G.LookAtGoal(link=DUAL_TIPS[1], **LOOKAT)
+        regs = [G.MinimalDisplacementGoal(weight=MG_WEIGHT),
+                G.AvoidJointLimitsGoal(weight=MG_WEIGHT)]
+        cfg = SolverConfig(mode="bio2_memetic", dpos=1e-2, drot=float("inf"),
+                           dtwist=float("inf"))
+
+        def bench(goals):
+            return self._dual_bench(B_MG, goals, cfg, MG_PHASES, MG_FRACTIONS)
+
+        s, data, keys, fk, tg, slots = bench([pose, look] + regs)
+        eng = s.solvers[0].engine
+        assert (eng.mega.source == "megastep_wide" and eng.inst_kind == list(MG_KINDS)
+                and eng.sec_terms == REG_TERMS), (eng.inst_kind, eng.sec_terms)
+        res, qa, out = self._drive(s, data, keys, fk, tg, DUAL_QUEUE, len(MG_PHASES), slots)
+        p = s.problem
+        li = [grp.kind for grp in p.primary].index("lookat")
+
+        def lookat_err(q):
+            t = fk(q)
+            tips = torch.cat([t.pos, t.quat], -1)
+            return _EVALUATORS["lookat"](p, p.primary[li], data["primary"][li], tips,
+                                         None, None)[:, 0]
+
+        def active(q):
+            return q[:, torch.as_tensor(p.active_vars, device=q.device)]
+
+        # without the LookAtGoal: its instance kept at weight 0 (the (17, 1, 1)
+        # problem of the gripper alone has no kernel instance), so it
+        # neither pulls the solve nor fails the acceptance test
+        s1, d1, k1, _, _, _ = bench([pose, G.LookAtGoal(link=DUAL_TIPS[1], **{
+            **LOOKAT, "weight": 0.0})] + regs)
+        r1 = s1.solve_batch(k1, d1)
+        s2, d2, k2, _, _, _ = bench([pose, look])
+        r2 = s2.solve_batch(k2, d2)
+        prof = self._profile(s, data, keys)
+        out = {"phase": "multigoal_main", **out,
+               "median_lookat_err": float(lookat_err(res.q).median()),
+               "median_lookat_err_without_lookat": float(lookat_err(r1.q).median()),
+               "median_secondary_fitness": float(p.fitness_secondary(qa, data).median()),
+               "median_secondary_fitness_without_regularizers": float(
+                   p.fitness_secondary(active(r2.q), data).median()),
+               "ablation_success_rates": [float(r1.success.float().mean()),
+                                          float(r2.success.float().mean())],
+               "device_idle_share": prof["device_idle_share"], "profile": prof,
+               "gpu": smi_line()}
+        emit(out)
+        self.kernels["megastep_dual_sec"]["launches"] = out["launches_per_solve_batch"]
+        if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 5e-3):
+            raise AssertionError(f"pr2_dual_multigoal below its limits: {out}")
+        if not out["median_lookat_err"] < out["median_lookat_err_without_lookat"]:
+            raise AssertionError(f"the LookAtGoal did not lower the lookat error: {out}")
+        if not (out["median_secondary_fitness"]
+                < out["median_secondary_fitness_without_regularizers"]):
+            raise AssertionError(f"the regularizers did not lower the secondary "
+                                 f"fitness: {out}")
 
     def regularized_main(self):
         """Path (a): the reference's recommended configuration (pose +
@@ -938,7 +1259,7 @@ class Smoke:
         ``sec_terms``, the pose-only kernel at the same shape."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
-            GROUPS, megastep_flops_per_lane, philox_calls_per_lane_step)
+            megastep_flops_per_lane, philox_calls_per_lane_step)
 
         clocks_per_call, sm_clocks = self._philox_clocks()
         rows = []
@@ -952,7 +1273,7 @@ class Smoke:
                                                 sec_terms=terms)
                 G = mega.group(mega._lib(N), self.dev, N)
                 by = {}
-                for g in GROUPS if key == "ms" else (G,):
+                for g in mega.groups if key == "ms" else (G,):
                     run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
                     run()
                     torch.cuda.synchronize()
@@ -1030,7 +1351,87 @@ class Smoke:
             regularized_ms=reg_rows[0]["ms"],
             ladder_ms=sum(r["ms"] for r in rows),
             regularized_ladder_ms=sum(r["ms"] for r in reg_rows))
+        self._wide_times()
         self._species_times()
+
+    def _wide_rows(self, shapes, kinds, terms=()):
+        """The wide megastep (in-kernel Philox) at each (lanes, n_steps)
+        launch shape, CUDA events, at the group size chosen and every group
+        size it builds, beside ``bound_ms`` (FP32 of the TPU cost model's
+        counts at this instance's V, K; or bytes) and ``int_bound_ms`` (its
+        Philox calls per lane-step, as :meth:`_mega_rows`)."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (
+            megastep_flops_per_lane, philox_calls_per_lane_step)
+
+        clocks_per_call, sm_clocks = self._philox_clocks()
+        rows = []
+        for N, steps in shapes:
+            mega, sp = self._wide(steps, kinds, terms)
+            state, consts, _ = self._wide_inputs(sp, steps, N, kinds, terms,
+                                                 with_noise=False)
+            salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+            G = mega.group(mega._lib(N), self.dev, N)
+            by = {}
+            for g in mega.groups:
+                run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
+                run()
+                torch.cuda.synchronize()
+                by[g] = cuda_ms(run, 2)
+            del state, consts
+            V, K, T = sp.V, sp.K, 2
+            flops = megastep_flops_per_lane(sp, steps) * N
+            # state in and out, the goal rows (gaux included), bounds, salt
+            nbytes = 4 * N * (2 * (5 * V + 2 + 7 * T) + 5 * V + 12 * K + 2
+                              + (8 * V if terms else 0))
+            calls = philox_calls_per_lane_step(sp) * N * steps
+            ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
+            rows.append({"lanes": N, "n_steps": steps, "group": G, "ms": by[G],
+                         "ms_by_group": by, "gflop": flops / 1e9, "bytes": nbytes,
+                         "philox_calls": calls, "fp32_bound_ms": ops_ms,
+                         "int_bound_ms": calls * clocks_per_call / sm_clocks * 1e3,
+                         "bound_ms": bound,
+                         "bound_by": "bytes" if bound == bytes_ms else "operations",
+                         "ns_per_lane_step": by[G] * 1e6 / (N * steps)})
+        return rows
+
+    def _wide_times(self):
+        """The wide instance at both dual paths' four ladder launch shapes,
+        and the plain version beside the kernel at one step on each path's
+        phase-1 lanes (the same Philox bits)."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import philox_draw
+
+        out = {"phase": "times", "instance": [17, 2, 2], "gpu": smi_line()}
+        for name, key, kinds, terms, shapes in (
+                ("megastep_dual", "pose2", POSE2_KINDS, (),
+                 phase_shapes(DUAL_PHASES, DUAL_FRACTIONS, B_DUAL)),
+                ("megastep_dual_sec", "multigoal", MG_KINDS, REG_TERMS,
+                 phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG))):
+            rows = self._wide_rows(shapes, kinds, terms)
+            N = shapes[0][0]
+            mega, sp = self._wide(1, kinds, terms)
+            state, consts, _ = self._wide_inputs(sp, 1, N, kinds, terms, with_noise=False)
+            salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+            draw = lambda: philox_draw(99, salt, sp.V, sp.C, keep=bool(terms))  # noqa: E731
+            mega.body(state, consts, draw())
+            plain_ms = cuda_ms(lambda: mega.body(state, consts, draw()), 1)
+            mega(state, consts, seed=99, salt=salt)
+            torch.cuda.synchronize()
+            one_step_ms = cuda_ms(lambda: mega(state, consts, seed=99, salt=salt), 3)
+            del state, consts
+            r0 = rows[0]
+            out[key] = {"rows": rows, "ladder_ms": sum(r["ms"] for r in rows),
+                        "plain_one_step_ms": plain_ms, "kernel_one_step_ms": one_step_ms,
+                        "one_step_lanes": N}
+            self.kernels[name].update(
+                ms=r0["ms"], plain_ms=plain_ms, plain_shape=[N, 1],
+                ms_at_plain_shape=one_step_ms, bound_ms=r0["bound_ms"],
+                bound_by=r0["bound_by"], fp32_bound_ms=r0["fp32_bound_ms"],
+                int_bound_ms=r0["int_bound_ms"], group=r0["group"],
+                ladder_ms=out[key]["ladder_ms"], shape=[N, r0["n_steps"]])
+        emit(out)
 
     def _species_times(self):
         """The species kernel at each species path's launch shape in both
@@ -1129,12 +1530,9 @@ class Smoke:
         and without the secondary terms in the memetic search (keep 1 on
         both sides, the plain version's secondary coefficients 0)."""
         import torch
-        from bio_ik_tpu_torch.kernels.bio2_megastep import (GROUPS, array_draw,
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (array_draw,
                                                             philox_draw)
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
-
-        def agree_frac(a, b):
-            return float(lane_agreement(a, b).float().mean())
 
         N = phase_shapes(REG_PHASES, REG_FRACTIONS)[0][0]
         out = {"phase": "sec_check", "lanes": N}
@@ -1161,7 +1559,7 @@ class Smoke:
             # every group size G: the same bits as G = 1
             g1 = kernel(noise[4], 1)
             row["group_bitwise_vs_g1_frac"] = {
-                G: bitwise_frac(kernel(noise[4], G), g1, N) for G in GROUPS}
+                G: bitwise_frac(kernel(noise[4], G), g1, N) for G in mega.groups}
             groups_bitwise.append(min(row["group_bitwise_vs_g1_frac"].values()))
             del g1
             if terms == REG_TERMS:
@@ -1223,6 +1621,12 @@ class Smoke:
         if min(bitwise) < 1.0:
             raise AssertionError("the species kernel with secondary terms is "
                                  f"bitwise equal on only {min(bitwise)} of lanes")
+        self._wide_fk_check("megastep_dual_sec", MG_KINDS, REG_TERMS)
+        row = self._wide_check(MG_KINDS, REG_TERMS)
+        emit({"phase": "sec_check", "instance": [17, 2, 2], **row})
+        self.kernels["megastep_dual_sec"].update(
+            agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
+            floor_agree_frac=row["plain_cpu_vs_card_agree_frac"])
 
     # ------------------------------------------------------- fullstep --
     def fullstep_check(self):
@@ -1306,6 +1710,162 @@ class Smoke:
         if min(frac, frac_p) < 0.85:
             raise AssertionError(f"fullstep kernel agrees on {frac:.3f} / "
                                  f"{frac_p:.3f} of lanes (< 0.85)")
+        self._wide_fullstep_check()
+        self._wide_kinds_fk_check()
+
+    def _wide_kinds_fk_check(self):
+        """Every goal kind's exact evaluator in the wide megastep: no
+        selection (zero generations, no memetic, one step) with a PoseGoal
+        on the right gripper and an instance of the kind at weight 1 on the
+        left one, parents FK_SPREAD rad about q* (clipped to the bounds), on
+        every lane of the multigoal path's first launch.  The incumbent then
+        holds parent 0's exact FK tips and fitness: the kernel's
+        max_abs_err against the plain version (atol 1e-5).  The controls,
+        the plain version with the kind swapped for KIND_CONTROL's and, for
+        the cone, with torch.atan2 in place of the Hastings polynomial, must
+        miss the kernel's fitness by more than that."""
+        from unittest import mock
+
+        import torch
+        from bio_ik_tpu_torch.interop import tree_from_numpy
+        from bio_ik_tpu_torch.kernels import bio2_fullstep
+        from bio_ik_tpu_torch.kernels.bio2_fullstep import LINK_KINDS
+        from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw
+        from bio_ik_tpu_torch.kernels.checks import max_abs_err, megastep_inputs
+
+        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+        out = {"phase": "fullstep_check", "instance": [17, 2, 2], "fk_lanes": N,
+               "fk_spread": FK_SPREAD, "fk_miss": FK_MISS}
+        worst = 0.0
+        for kind in LINK_KINDS:
+            kinds = ("pose", kind)
+            mega, sp = self._wide(1, kinds, gens=0, mem_iters=0, memetic="")
+            other, _ = self._wide(1, ("pose", KIND_CONTROL[kind]), gens=0, mem_iters=0,
+                                  memetic="")
+            state, consts, noise = tree_from_numpy(megastep_inputs(
+                self.dual_cpu, list(DUAL_TIPS), sp, 1, N, 11, spread=FK_SPREAD,
+                inst_kind=list(kinds), miss=FK_MISS), self.dev)
+            k = mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
+                     wipe_g=noise[3])
+            draw = array_draw(*noise, 0)
+            p = mega.body(state, consts, draw)
+            c = other.body(state, consts, draw)
+            row = {"fk_fit_max_abs_err": max(max_abs_err(k[5], p[5]),
+                                             max_abs_err(k[4], p[4])),
+                   "control_kind": KIND_CONTROL[kind],
+                   "control_fit_max_abs_err": max_abs_err(k[4], c[4])}
+            controls = [row["control_fit_max_abs_err"]]
+            if kind == "cone":
+                with mock.patch.object(bio2_fullstep, "_atan2_nonneg", torch.atan2):
+                    e = mega.body(state, consts, draw)
+                row["control_exact_atan2_fit_max_abs_err"] = max_abs_err(k[4], e[4])
+                controls.append(row["control_exact_atan2_fit_max_abs_err"])
+            out[kind] = row
+            worst = max(worst, row["fk_fit_max_abs_err"])
+            if not row["fk_fit_max_abs_err"] <= 1e-5:
+                raise AssertionError(f"wide exact FK/fitness with {kind} disagree: {row}")
+            if not min(controls) > 1e-5:
+                raise AssertionError(f"the {kind} exact-fitness check cannot tell a "
+                                     f"wrong plain version apart: {row}")
+        emit(out)
+        entry = self.kernels["megastep_dual"]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
+
+    def _wide_fullstep_check(self):
+        """The wide fullstep (17, 2, 2) once per non-pose goal kind, a
+        PoseGoal on the right gripper and the kind on the left one (rows
+        that miss, so the term acts: checks.megastep_inputs), against
+        make_fullstep_inner on N_WIDE_CHECK lanes (noise tensors and
+        Philox), beside the floor (the plain version on the CPU against
+        itself on the card, first N_WIDE_FLOOR lanes) and three controls,
+        wrong plain versions: the instances' tips swapped, the kind's term
+        dropped (its weight zeroed) and the kind swapped for
+        KIND_CONTROL's; then its time at the multigoal path's phase-1
+        lanes beside its bound and the plain version's time."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_fullstep import LINK_KINDS, array_draw_gen
+        from bio_ik_tpu_torch.kernels.bio2_megastep import (
+            Fullstep, fullstep_bytes_per_lane, megastep_flops_per_lane, philox_draw)
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
+        from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
+
+        sp = SpeciesParams(V=17, K=2)
+        N, n = N_WIDE_CHECK, N_WIDE_FLOOR
+        out = {"phase": "fullstep_check", "instance": [17, 2, 2], "lanes": N}
+        worst, controls, errs = 1.0, [], []
+        salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+
+        def fullstep(kinds, model=None, inst_tip=(0, 1)):
+            return Fullstep(model or self.dual, list(DUAL_TIPS), list(range(17)),
+                            list(inst_tip), sp, inst_kind=list(kinds))
+
+        for kind in LINK_KINDS:
+            kinds = ("pose", kind)
+            fs = fullstep(kinds)
+            state, consts, noise = self._wide_inputs(sp, 1, N, kinds, seed=13)
+            args = (state[0], state[1]) + tuple(consts[:-2])
+            k_out = fs(*args, noise=noise[0], rates=noise[1])
+            p_out = fs.inner(*args, array_draw_gen(noise[0], noise[1]))
+            k2 = fs(*args, seed=77, salt=salt)
+            p2 = fs.inner(*args, philox_draw(77, salt, sp.V, sp.C)(0)[0])
+            torch.cuda.synchronize()
+            cut = lambda xs: tuple(x[..., :n].cpu() for x in xs)  # noqa: E731
+            c_out = fullstep(kinds, self.dual_cpu).inner(
+                *cut(args), array_draw_gen(*cut(noise[:2])))
+            agree = lane_agreement(k_out, p_out)
+            errs.append(max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out)))
+            row = {"agree_frac": float(agree.float().mean()),
+                   "philox_agree_frac": agree_frac(k2, p2),
+                   "plain_cpu_vs_card_agree_frac": agree_frac(c_out, cut(p_out))}
+            row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
+            dropped = list(args)
+            i = [nm for nm, _ in fs.rows].index("wpos")
+            dropped[i] = dropped[i].clone()
+            dropped[i][1] = 0.0
+            wrong = {"tips_swapped": (fullstep(kinds, inst_tip=(1, 0)), args),
+                     "term_dropped": (fs, dropped),
+                     "kind_swapped": (fullstep(("pose", KIND_CONTROL[kind])), args)}
+            for label, (f, a) in wrong.items():
+                row[f"control_{label}_agree_frac"] = agree_frac(
+                    k_out, f.inner(*a, array_draw_gen(noise[0], noise[1])))
+                controls.append(row[f"control_{label}_agree_frac"])
+            out[kind] = row
+            if min(row["agree_frac"], row["philox_agree_frac"]) < row["agree_limit"]:
+                raise AssertionError(f"wide fullstep with {kind} below its limit: {row}")
+            worst = min(worst, row["agree_frac"], row["philox_agree_frac"])
+        out["control_limit"] = CONTROL_LIMIT
+        if max(controls) >= CONTROL_LIMIT:
+            raise AssertionError(f"a wrong plain version agrees with the wide "
+                                 f"fullstep: {out}")
+        # its time at the multigoal path's phase-1 lanes, counted launches
+        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+        kinds = MG_KINDS
+        fs = fullstep(kinds)
+        state, consts, noise = self._wide_inputs(sp, 1, N, kinds, seed=13)
+        args = (state[0], state[1]) + tuple(consts[:-2])
+        salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
+        noise_run = lambda: fs(*args, noise=noise[0], rates=noise[1])  # noqa: E731
+        philox_run = lambda: fs(*args, seed=77, salt=salt)  # noqa: E731
+        noise_run(), philox_run()
+        torch.cuda.synchronize()
+        Fullstep.launches = 0
+        ms, ms_p = cuda_ms(noise_run, 10), cuda_ms(philox_run, 10)
+        launches = Fullstep.launches
+        plain_ms = cuda_ms(lambda: fs.inner(*args, array_draw_gen(noise[0], noise[1])), 1)
+        flops = megastep_flops_per_lane(sp, 1) * N
+        nbytes = (fullstep_bytes_per_lane(sp, 0) + 4 * 3 * sp.K) * N     # + gaux
+        nbytes_p = nbytes - 4 * N * (sp.gens * sp.V * sp.C + sp.gens * sp.C)
+        ops_ms = flops / PEAK_FP32 * 1e3
+        bound = max(ops_ms, nbytes / PEAK_BYTES * 1e3)
+        bound_p = max(ops_ms, nbytes_p / PEAK_BYTES * 1e3)
+        out.update(time_lanes=N, noise_tensor_ms=ms, philox_ms=ms_p, plain_ms=plain_ms,
+                   launches_timed=launches, noise_tensor_bound_ms=bound,
+                   philox_bound_ms=bound_p, gpu=smi_line())
+        emit(out)
+        self.kernels["fullstep_dual"].update(
+            launches=launches, agree_frac=worst, max_abs_err=max(errs), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes" if bound > ops_ms else "operations", philox_ms=ms_p,
+            philox_bound_ms=bound_p, lanes=N)
 
     # ------------------------------------------------------------ mfu --
     def mfu(self):
@@ -1368,8 +1928,8 @@ class Smoke:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
-                    "main,regularized_main,species_check,species_main,"
-                    "species_sec_main,times,profile,mfu",
+                    "main,regularized_main,dual_main,multigoal_main,species_check,"
+                    "species_main,species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
@@ -1399,8 +1959,12 @@ def main():
         **{x: v for x, v in k[name].items() if x not in KERNEL_KEYS})
         for name, src, replaces in (
             ("megastep", "megastep", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
+            ("megastep_dual", "megastep_wide", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
+            ("megastep_dual_sec", "megastep_wide",
+             "bio_ik_tpu/kernels/bio2_megastep.py:321"),
             ("species", "species", "bio_ik_tpu/kernels/bio2_step.py:461"),
             ("fullstep", "megastep", "bio_ik_tpu/kernels/bio2_fullstep.py:692"),
+            ("fullstep_dual", "megastep_wide", "bio_ik_tpu/kernels/bio2_fullstep.py:692"),
             ("peak", "peak", "tools/bench_mfu.py:85"))]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -109,7 +109,8 @@ def test_goal_rows_match_jax(rng):
         rng.normal(size=(B,) + x.shape).astype(np.float32)), d0)
     jrows = _np(js.engine._goal_rows(jdata, B))
     trows = tree_to_numpy(ts.engine._goal_rows(tree_from_numpy(_np(jdata), "cpu"), B))
-    for a, b in zip(trows, (jrows[0], jrows[1], jrows[3], jrows[4])):
+    assert len(trows) == len(jrows) == 5          # gpos, gquat, gaux, wpos, wrot
+    for a, b in zip(trows, jrows):
         np.testing.assert_array_equal(a, b)
 
 

@@ -27,7 +27,7 @@ from bio_ik_tpu_torch.kernels.bio2_fullstep import (
     rates_from_words,
 )
 from bio_ik_tpu_torch.kernels.bio2_megastep import (
-    GROUPS,
+    MEGASTEP_GROUPS,
     Megastep,
     _branch_slots,
     array_draw,
@@ -124,7 +124,7 @@ def _pools(kind, n=1500, seed=0):
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "nonfinite"])
-@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("G", MEGASTEP_GROUPS["megastep"])
 def test_group_best_two_is_the_sequential_scan(G, kind):
     for f in _pools(kind, seed=G):
         assert group_select(list(f), G) == scan_select(list(f)), f
@@ -145,7 +145,7 @@ def test_sequential_scan_is_the_plain_first_min_pick(kind):
         assert (h1 + 2, h2 + 2) == (int(i1[0, lane]), int(i2[0, lane])), row
 
 
-@pytest.mark.parametrize("G", GROUPS)
+@pytest.mark.parametrize("G", MEGASTEP_GROUPS["megastep"])
 def test_group_ranking_is_preselect(G):
     """The secondary pre-selection as the kernel ranks it: each thread
     counts, for each of its children, the C values it receives by shuffles
@@ -295,8 +295,8 @@ def test_group_rule_fills_the_card():
     and for the secondary-goal kernel): the G each ladder launch ran fastest
     at on that card (PERF.md §6), and G > 1 where a launch fills less than
     the card."""
-    pose = {g: (3 if g == 1 else 2) * 132 for g in GROUPS}
-    sec = dict.fromkeys(GROUPS, 2 * 132)
+    pose = {g: (3 if g == 1 else 2) * 132 for g in MEGASTEP_GROUPS["megastep"]}
+    sec = dict.fromkeys(MEGASTEP_GROUPS["megastep"], 2 * 132)
     main = [choose_group(n, pose) for n in (131072, 39320, 15728, 8384)]
     reg = [choose_group(n, sec) for n in (131072, 78640, 52424, 31456)]
     assert main == [1, 1, 2, 4] and reg == [1, 1, 1, 1]
@@ -336,8 +336,8 @@ def test_cuda_group_sizes_give_the_same_lanes(sec_terms):
     kw = dict(noise=noise[0], rates=noise[1], wipe_u=noise[2], wipe_g=noise[3])
     if sec_terms:
         kw["keep"] = noise[4]
-    outs = {G: mega(state, consts, group=G, **kw) for G in GROUPS}
-    for G in GROUPS[1:]:
+    outs = {G: mega(state, consts, group=G, **kw) for G in MEGASTEP_GROUPS["megastep"]}
+    for G in MEGASTEP_GROUPS["megastep"][1:]:
         for a, b in zip(outs[G], outs[1]):
             assert torch.equal(a, b), G
     ref = mega.body(state, consts, array_draw(*noise[:4], sp.gens, keep=kw.get("keep")))

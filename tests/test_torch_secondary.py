@@ -228,7 +228,7 @@ def test_joint_variable_primary_acceptance_matches_jax(arms, rng):
 
 
 @pytest.mark.parametrize("goal,item", [
-    (G.LookAtGoal(link=TIP), 1), (G.ConeGoal(link=TIP), 1),
+    (G.BalanceGoal(), 5), (G.LinkFunctionGoal(link=TIP), 5),
     (G.TouchGoal(link=TIP), 5), (G.JointFunctionGoal(), 5)])
 def test_unported_kinds_name_their_roadmap_item(arms, goal, item):
     with pytest.raises(NotImplementedError, match=f"port queue item {item}"):

@@ -34,7 +34,8 @@ from bio_ik_tpu_torch import (AdaptiveBatchSolver, IKSolver, RobotModel,
                               SolverConfig, make_fk)
 from bio_ik_tpu_torch.engine import FusedBio2Engine
 from bio_ik_tpu_torch.interop import tree_from_numpy, tree_map
-from bio_ik_tpu_torch.kernels.bio2_megastep import MEGASTEP_SHAPES, philox_draw
+from bio_ik_tpu_torch.kernels.bio2_megastep import (MEGASTEP_GROUPS,
+                                                    MEGASTEP_SOURCES, philox_draw)
 from bio_ik_tpu_torch.kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel,
                                                 SpeciesParams, make_species_inner,
                                                 species_bytes_per_lane,
@@ -318,18 +319,17 @@ def test_adaptive_species_tier():
 
 
 def test_kernel_shape_gap_is_rejected():
-    """On a card, a (V, K, T) that neither CUDA source instantiates is
-    rejected at construction, naming the shape and the ROADMAP item."""
+    """On a card, a (V, K, T) that no CUDA source instantiates is rejected
+    at construction, naming the shape and the ROADMAP item."""
     def on_card(solver):
         solver.problem.device = torch.device("cuda")   # metadata only
         return FusedBio2Engine.supports(solver)
 
-    dual = RobotModel.from_urdf_file(asset_path("pr2_dual.urdf"), device="cpu")
-    s = IKSolver(dual, [G.PoseGoal(link="r_gripper_tool_frame"),
-                        G.PoseGoal(link="l_gripper_tool_frame")])
+    snake = _model("snake.urdf")
+    s = IKSolver(snake, [G.PositionGoal(link="head")])
     assert FusedBio2Engine.supports(s) is None          # CPU: plain version
     reason = on_card(s)
-    assert "(17, 2, 2)" in reason and "queue item 9" in reason
+    assert "(32, 1, 1)" in reason and "queue item 9" in reason
     free = _model("free_arm.urdf")
     s = IKSolver(free, [G.PositionGoal(link="tool")], fixed_joints=["j3"])
     reason = on_card(s)
@@ -337,14 +337,20 @@ def test_kernel_shape_gap_is_rejected():
     for name, tip in (("free_arm.urdf", "tool"), ("planar_arm.urdf", "tool"),
                       ("pr2_arm.urdf", "r_gripper_tool_frame")):
         assert on_card(IKSolver(_model(name), [G.PoseGoal(link=tip)])) is None
-    # the Python lists name exactly the instances of the CUDA sources
-    for src, shapes in (("megastep.cu", MEGASTEP_SHAPES),
-                        ("species.cu", SPECIES_SHAPES)):
+    # the Python lists name exactly the instances of the CUDA sources, and
+    # the group sizes each megastep source builds
+    sources = [(f"{name}.cu", shapes) for name, shapes in MEGASTEP_SOURCES.items()]
+    for src, shapes in sources + [("species.cu", SPECIES_SHAPES)]:
         with open(f"{CSRC}/{src}") as fh:
-            line = re.search(r"#define SHAPES\(X\)(.*)", fh.read()).group(1)
+            text = fh.read()
+        line = re.search(r"#define SHAPES\(X\)(.*)", text).group(1)
         found = tuple(tuple(int(x) for x in m.split(","))
                       for m in re.findall(r"X\(([^)]*)\)", line))
         assert found == shapes
+        if src != "species.cu":
+            line = re.search(r"#define GROUPS\(X, v, k, t\)(.*)", text).group(1)
+            groups = tuple(int(m.split(",")[-1]) for m in re.findall(r"X\(([^)]*)\)", line))
+            assert groups == MEGASTEP_GROUPS[src[:-3]]
 
 
 @pytest.mark.cuda
