@@ -2,12 +2,13 @@
 // per lane in one launch, with the species sort, wipeout and per-lane
 // incumbent bookkeeping between steps.
 //
-// The step, its kernels and their C API, shared by the two sources that
+// The step, its kernels and their C API, shared by the three sources that
 // instantiate them: csrc/megastep.cu (MEGASTEP_WIDE 0: the pose family on
-// few variables, the lane's linearization in registers) and
-// csrc/megastep_wide.cu (MEGASTEP_WIDE 1: many variables and tips, every
-// goal kind of the step).  Each source defines SHAPES(X) and GROUPS(X, v,
-// k, t) before including this header.
+// few variables, the lane's linearization in registers), and
+// csrc/megastep_wide.cu and csrc/megastep_high.cu (MEGASTEP_WIDE 1: many
+// variables and tips, every goal kind of the step; the PR2 dual arm, and
+// snake-32 and the 30-DOF humanoid).  Each source defines SHAPES(X) and
+// GROUPS(X, v, k, t) before including this header.
 //
 // Replaces the TPU kernel bio_ik_tpu/kernels/bio2_megastep.py::
 // make_megastep_kernel (its pl.pallas_call), which inlines
@@ -62,7 +63,9 @@
 //     compare-swap is __shfl_xor_sync(…, G) (the TPU kernel's
 //     pltpu.roll(±1)); padding threads past N·G read lane N−1, take part in
 //     every shuffle and skip the stores;
-//   * wide instances (MEGASTEP_WIDE; PR2 dual arm: V = 17, K = T = 2):
+//   * wide instances (MEGASTEP_WIDE; PR2 dual arm: V = 17, K = T = 2;
+//     snake-32: V = 32, K = T = 1, 32 of 32 columns; the humanoid: V = 30,
+//     K = T = 3, 22 of 90 columns):
 //     the lane's linearization ∂tip_t/∂x_v, V·T·7 floats, would not fit in
 //     registers beside the parents, so it lives in shared memory, one
 //     column of 7 rows per (v, t) on which tip t depends (the JAX body
@@ -693,7 +696,9 @@ __device__ __forceinline__ float goal_term(const Goals<V, K>& G, int k, const fl
 
 // Linearized fitness of genes x in a wide instance (eval_lin with the
 // lane's columns in shared memory; column −1: no dependency, skipped as
-// in the plain version).
+// in the plain version).  The loops over the columns unroll fully up to
+// 24 variables and by 4 above: fully unrolled at V = 30–32 they doubled
+// the kernels' nvcc time and ran no faster (PERF.md §6).
 template <int V, int K, int T, int G, bool GRAD>
 __device__ __forceinline__ float eval_lin_w(const Lane<V, T, G>& X, const float (&base)[K][7],
                                             const Goals<V, K>& GL, const float (&x)[V],
@@ -711,7 +716,7 @@ __device__ __forceinline__ float eval_lin_w(const Lane<V, T, G>& X, const float 
     float ph[7];
 #pragma unroll
     for (int c = 0; c < 7; ++c) ph[c] = base[k][c];
-#pragma unroll
+#pragma unroll (V > 24 ? 4 : V)
     for (int v = 0; v < V; ++v) {
       const int col = kcol[k * V + v];
       if (col < 0) continue;
@@ -723,7 +728,7 @@ __device__ __forceinline__ float eval_lin_w(const Lane<V, T, G>& X, const float 
     const float term = goal_term<V, K, GRAD>(GL, k, ph, gv);
     fit = (k == 0) ? term : fit + term;
     if (GRAD) {
-#pragma unroll
+#pragma unroll (V > 24 ? 4 : V)
       for (int v = 0; v < V; ++v) {
         const int col = kcol[k * V + v];
         if (col < 0) continue;
@@ -1348,15 +1353,24 @@ static int prepare(KF kernel, size_t smem) {
                                    (int)smem);
 }
 
-// Resident blocks per SM of a megastep instance at `smem` bytes (0 and a
-// message in *blocks when the instance does not exist).
+// Resident blocks per SM of a megastep instance at `smem` bytes: 0 blocks
+// (and success) where a block does not fit, its shared memory over the
+// card's opt-in limit; an error when the instance does not exist.
 extern "C" int megastep_blocks_per_sm(int V, int K, int T, int sec, int G, int smem,
                                       int* blocks) {
   *blocks = 0;
+  int dev = 0, optin = 0;
+  cudaError_t q = cudaGetDevice(&dev);
+  if (q == cudaSuccess)
+    q = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (q != cudaSuccess) return (int)q;
+  const bool fits = smem <= optin;
 #define OCC(v, k, t, g)                                                            \
   if (V == v && K == k && T == t && G == g) {                                      \
     cudaError_t e;                                                                 \
-    if (sec) {                                                                     \
+    if (!fits) {                                                                   \
+      e = cudaSuccess;                                                             \
+    } else if (sec) {                                                              \
       e = (cudaError_t)prepare(megastep_sec_kernel<v, k, t, g>, smem);            \
       if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(     \
           blocks, megastep_sec_kernel<v, k, t, g>, BLOCK, smem);                   \

@@ -229,17 +229,16 @@ class FusedBio2Engine:
             K = sum(grp.count for grp in p.primary)
             shape = (V, K, p.ntips)
             if fullstep and not any(shape in x for x in MEGASTEP_SOURCES.values()):
+                have = ", ".join(f"csrc/{src}.cu {list(shapes)}"
+                                 for src, shapes in MEGASTEP_SOURCES.items())
                 return (f"the megastep kernel is not instantiated for "
-                        f"(V, K, T) = {shape} (csrc/megastep.cu has "
-                        f"{list(MEGASTEP_SOURCES['megastep'])}, "
-                        f"csrc/megastep_wide.cu {list(MEGASTEP_SOURCES['megastep_wide'])}"
-                        "; ROADMAP.md, port queue item 9)")
+                        f"(V, K, T) = {shape} ({have}; ROADMAP.md, port queue item 9)")
             if fullstep and shape in MEGASTEP_SOURCES["megastep"] and any(
                     grp.kind not in POSE_KINDS for grp in p.primary):
                 return (f"the (V, K, T) = {shape} megastep instance evaluates the "
                         "pose family only (csrc/megastep.cu; the other kinds run "
-                        "on the csrc/megastep_wide.cu instances; ROADMAP.md, port "
-                        "queue item 9)")
+                        "on the csrc/megastep_wide.cu and csrc/megastep_high.cu "
+                        "instances; ROADMAP.md, port queue item 9)")
             qmask = quat_mask(quat_gene_slices(model, p.active_vars))
             if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
                 return (f"the species kernel is not instantiated for (V, K) = "

@@ -32,12 +32,13 @@ Goal instances of the other kinds (``inst_kind``: lookat, line, plane, …;
 :data:`bio2_fullstep.LINK_KINDS`) bring the ``gaux (3K, N)`` const after
 ``gquat`` where one of them needs it (:data:`bio2_fullstep.AUX_KINDS`).
 
-Two CUDA sources share the step (``csrc/megastep.cuh``):
+Three CUDA sources share the step (``csrc/megastep.cuh``):
 ``csrc/megastep.cu`` holds the pose-family instances of few variables,
 whose lane linearization lives in registers, and ``csrc/megastep_wide.cu``
-the instances of many variables and tips, whose linearization lives in
-shared memory by dependency column and which evaluate every goal kind
-(:data:`MEGASTEP_SOURCES`).
+(the PR2 dual arm) and ``csrc/megastep_high.cu`` (snake-32, the 30-DOF
+humanoid) the instances of many variables and tips, whose linearization
+lives in shared memory by dependency column and which evaluate every goal
+kind (:data:`MEGASTEP_SOURCES`).
 
 :class:`Fullstep` wraps the same step without the bookkeeping (the TPU
 kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
@@ -74,13 +75,16 @@ __all__ = ["make_megastep_body", "array_draw", "philox_draw", "philox_wipe",
            "MEGASTEP_SOURCES", "MEGASTEP_GROUPS", "KIND_CODE", "dependency_columns"]
 
 # (V, K, T) instances of each megastep source (its SHAPES macro), each for
-# every group size G of the source's GROUPS macro; the wide source's
-# instances evaluate every goal kind of the step, the other's the pose
-# family.  The wide source leaves out G = 8, which choose_group picks at no
-# launch of its paths (each of its kernels takes ~20 s of nvcc)
+# every group size G of the source's GROUPS macro; the wide and high-DOF
+# sources' instances evaluate every goal kind of the step, the other's the
+# pose family.  The wide source leaves out G = 8, which choose_group picks
+# at no launch of its paths (each of its kernels takes ~20 s of nvcc); the
+# high-DOF source builds G = 2 alone (csrc/megastep_high.cu says why)
 MEGASTEP_SOURCES = {"megastep": ((7, 1, 1), (6, 1, 1)),
-                    "megastep_wide": ((17, 2, 2),)}
-MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (1, 2, 4)}
+                    "megastep_wide": ((17, 2, 2),),
+                    "megastep_high": ((32, 1, 1), (30, 3, 3))}
+MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (1, 2, 4),
+                   "megastep_high": (2,)}
 # the kernel's code of each goal kind (csrc/megastep.cuh GK_*)
 KIND_CODE = {**dict.fromkeys(POSE_KINDS, 0),
              **{k: i + 1 for i, k in enumerate(LINK_KINDS)}}
@@ -121,18 +125,21 @@ def philox_calls_per_lane_step(sp: SpeciesParams) -> int:
 
 def choose_group(N: int, resident, C: int = _MAX_C) -> int:
     """The group size G of a launch on ``N`` lanes: the G (dividing C, among
-    the keys of ``resident``) of least estimated time ``waves(G)·((1 −
-    r)/G + r)``, with ``waves(G)`` the rounds of ``resident[G]`` blocks
-    (blocks per SM · SMs) its ``N·G`` threads need and ``r`` the repeated
-    share of a lane-step; ties to the smaller G."""
+    the keys of ``resident`` with at least one resident block) of least
+    estimated time ``waves(G)·((1 − r)/G + r)``, with ``waves(G)`` the
+    rounds of ``resident[G]`` blocks (blocks per SM · SMs) its ``N·G``
+    threads need and ``r`` the repeated share of a lane-step; ties to the
+    smaller G.  Raises ValueError when no G fits."""
     best = None
     for g in sorted(resident):
-        if C % g:
+        if C % g or resident[g] < 1:
             continue
         blocks = -(-N * g // _BLOCK)
         est = -(-blocks // resident[g]) * ((1 - _REPEATED) / g + _REPEATED)
         if best is None or est < best[0] - 1e-9:
             best = (est, g)
+    if best is None:
+        raise ValueError(f"no group size fits (resident blocks by G: {resident})")
     return best[1]
 
 
@@ -380,8 +387,9 @@ class _StepKernel:
         if not lib.megastep_has_shape(sp.V, sp.K, self.T):
             raise ValueError(
                 f"the megastep kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K}, T={self.T} (SHAPES in csrc/megastep.cu and "
-                "csrc/megastep_wide.cu; ROADMAP.md, port queue item 9)")
+                f"K={sp.K}, T={self.T} (SHAPES in csrc/"
+                f"{'.cu, csrc/'.join(MEGASTEP_SOURCES)}.cu; ROADMAP.md, port "
+                "queue item 9)")
         # engine.supports rejects other kinds on the pose-family source
         assert self.source != "megastep" or set(self.inst_kind) <= set(POSE_KINDS)
         return lib
@@ -395,23 +403,32 @@ class _StepKernel:
                   G, self.sec_mask, self.ncol, self.sp.K, self.T)
 
     def resident_blocks(self, lib, dev, G: int) -> int:
-        """Blocks of the instance at group G the card holds at once."""
+        """Blocks of the instance at group G the card holds at once: 0 where
+        a block does not fit (its shared memory over the card's opt-in limit,
+        or too many registers)."""
         fn = lib.megastep_blocks_per_sm
         fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         rc = fn(self.sp.V, self.sp.K, self.T, int(bool(self.sec_mask)), G,
                 self.smem_bytes(lib, G), ctypes.byref(blocks))
-        if rc != 0 or blocks.value < 1:
-            raise RuntimeError(f"megastep G={G} does not fit on the card: "
-                               f"CUDA error {rc}, {blocks.value} blocks per SM")
+        if rc != 0:
+            raise RuntimeError(f"megastep occupancy query at G={G} failed: "
+                               f"CUDA error {rc}")
         return blocks.value * torch.cuda.get_device_properties(dev).multi_processor_count
 
     def group(self, lib, dev, N: int) -> int:
-        """The group size of a launch on N lanes (:func:`choose_group`)."""
+        """The group size of a launch on N lanes (:func:`choose_group` over
+        the group sizes that fit)."""
         if (dev, N) not in self._groups:
             resident = {g: self.resident_blocks(lib, dev, g) for g in self.groups
                         if self.sp.C % g == 0}
+            if not any(resident.values()):
+                raise RuntimeError(
+                    f"no group size of the megastep instance (V, K, T) = "
+                    f"{(self.sp.V, self.sp.K, self.T)} with secondary terms "
+                    f"{self.sec_terms} fits on the card: shared memory per block "
+                    f"{ {g: self.smem_bytes(lib, g) for g in resident} } bytes")
             self._groups[dev, N] = choose_group(N, resident, self.sp.C)
         return self._groups[dev, N]
 

@@ -40,9 +40,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # per-source flags: the species kernel keeps the plain version's rounding
 # (no FMA contraction; see the note at the top of csrc/species.cu); the
-# wide megastep's seven kernels compile in parallel (one thread each on an
-# H100's host: 43 s instead of 156 s, the same registers, stack and spill)
-EXTRA_FLAGS = {"species": ["-fmad=false"], "megastep_wide": ["--split-compile=0"]}
+# wide and high-DOF megasteps' kernels compile in parallel (one thread each
+# on an H100's host: the wide source's seven in 43 s instead of 156 s, the
+# same registers, stack and spill)
+EXTRA_FLAGS = {"species": ["-fmad=false"], "megastep_wide": ["--split-compile=0"],
+               "megastep_high": ["--split-compile=0"]}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

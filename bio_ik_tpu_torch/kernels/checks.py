@@ -17,13 +17,25 @@ import numpy as np
 import torch
 
 __all__ = ["megastep_inputs", "species_inputs", "sec_rows", "lane_agreement",
-           "max_abs_err", "MISS"]
+           "max_abs_err", "axis_negated", "MISS", "HIGH_DOF"]
 
 # how far a non-pose goal instance of megastep_inputs misses the frame it
 # is placed at (_kind_rows): metres, radians.  Parents 1e-3 rad off q*
 # move the tip by ~1e-3 m and ~3e-3 rad, so the relu kinds' terms act on
 # ≥ 99.8 % of the parents of pr2_arm
 MISS = (0.002, 0.01)
+
+# the problems of the high-DOF megastep instances, the JAX suite's
+# snake32_position and humanoid_whole_body rows (tools/bench_suite.py:
+# 134-142, 175-197): robot, tip links, the kind of each goal instance (on
+# tip k), and the secondary terms their checks run with — all four on the
+# snake, the reference's two regularizers on the humanoid
+HIGH_DOF = {
+    "snake": ("snake.urdf", ("head",), ("position",),
+              ("alpha", "beta", "gamma", "delta")),
+    "humanoid": ("humanoid.urdf", ("r_hand", "l_hand", "head"), ("pose",) * 3,
+                 ("beta", "gamma")),
+}
 
 
 def sec_rows(model, sec_terms, N: int, rng, weight: float = 0.05):
@@ -270,6 +282,19 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
         args += (rng.uniform(size=(sp.gens, 1, N)).astype(f32),
                  sec_rows(model, sec_terms, N, rng))
     return args
+
+
+def axis_negated(model, var: int):
+    """A copy of ``model`` whose joint of variable ``var`` turns about its
+    negated axis: the chain of a wrong plain version (a control the checks
+    must fail), the model itself unchanged."""
+    import copy
+
+    wrong = copy.copy(model)
+    wrong.axis = model.axis.copy()
+    li = int(np.flatnonzero(model.vstart == var)[0])
+    wrong.axis[li] = -wrong.axis[li]
+    return wrong
 
 
 def lane_agreement(outs_a, outs_b, rtol=1e-5, atol=1e-6):

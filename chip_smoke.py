@@ -6,20 +6,23 @@
 
 Drives ``bio_ik_tpu_torch`` (never JAX) through its paths — the fullstep
 tier (bench.py's configuration, the reference's recommended regularized
-one, and the JAX suite's two PR2 dual-arm rows on the wide megastep
-instance), the species tier (floating and planar chains, with and without
-the regularizers) and the FP32 peak calibration — and holds each
-hand-written CUDA kernel against its plain torch version.  Phases, each
+one, the JAX suite's two PR2 dual-arm rows on the wide megastep instance
+and its snake-32 and humanoid rows on the high-DOF instances), the
+species tier (floating and planar chains, with and without the
+regularizers) and the FP32 peak calibration — and holds each hand-written
+CUDA kernel against its plain torch version.  Phases, each
 printing one JSON line and its seconds; any failure raises and exits
 non-zero:
 
   build           — card name and power limit, torch/CUDA versions, nvcc
                     build of every kernel source (megastep.cu,
-                    megastep_wide.cu, species.cu, peak.cu, in parallel),
-                    each source's nvcc seconds, their ptxas reports and,
-                    per kernel instance, registers, stack and spill; the
-                    wide (17, 2, 2) instances' shared memory per block and
-                    resident blocks at each group size;
+                    megastep_wide.cu, megastep_high.cu, species.cu,
+                    peak.cu, in parallel), each source's nvcc seconds,
+                    their ptxas reports and, per kernel instance,
+                    registers, stack and spill; the wide (17, 2, 2) and
+                    high-DOF (32, 1, 1), (30, 3, 3) instances' shared
+                    memory per block at every group size and resident
+                    blocks at each one built (or "does not fit");
   check           — megastep vs plain version, noise-tensor mode, main-path
                     sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
                     steps, N=4096): ≥ 85 % of lanes agree, beside the plain
@@ -29,7 +32,11 @@ non-zero:
                     instance (PR2 dual arm, two PoseGoals) likewise at
                     16 384 lanes, against its floor and two wrong plain
                     versions (the instances' tips swapped, the rotation
-                    weights zeroed);
+                    weights zeroed); the high-DOF instances likewise
+                    (snake: one joint's axis negated, the position term
+                    dropped; humanoid: tips permuted, rotation weights
+                    zeroed), every G bitwise equal to the smallest that
+                    fits, exact FK and fitness on 131 072 lanes;
   rng             — in-kernel Philox vs the plain version's at each main-path
                     launch's lane count (≥ 85 %), clt4 moments, rate bins
                     (the 4-bit fields of a generation's rate call), bitwise
@@ -40,11 +47,15 @@ non-zero:
                     the species kernel with the same terms, bitwise; the
                     wide instance with the multigoal path's PoseGoal +
                     LookAtGoal and regularizers (controls: the lookat axis
-                    negated, the tips swapped);
+                    negated, the tips swapped); the high-DOF instances
+                    with all four terms (snake) and the regularizers
+                    (humanoid);
   fullstep_check  — the fullstep kernel vs make_fullstep_inner at 131 072
                     lanes in both RNG modes (≥ 85 %), its time and bound;
                     the wide fullstep once per non-pose goal kind beside a
-                    PoseGoal, each against its floor;
+                    PoseGoal, each against its floor; the high-DOF
+                    fullsteps (the humanoid also once per non-pose kind
+                    on the head, and every kind's exact fitness);
   main            — bench.py's configuration through AdaptiveBatchSolver at
                     B = 65 536: success, median position error, solves/s,
                     launches per solve_batch (4), determinism, the flags
@@ -59,6 +70,18 @@ non-zero:
                     same fields, the lookat error beside a solve with the
                     LookAtGoal at weight 0, the secondary fitness beside a
                     solve without the regularizers;
+  snake_main      — the JAX suite's snake32_position (PositionGoal at 5 mm,
+                    tools/bench_suite.py:134-142) through a plain
+                    IKSolver at B = 65 536 (524 288 lanes, 4 launches of
+                    4 steps): the main fields; then with the two
+                    regularizers at B = 4 096 on the secondary-goal
+                    instance, its secondary fitness beside a pose-only
+                    solve;
+  humanoid_main   — the JAX suite's humanoid_whole_body (three PoseGoals at
+                    1 cm, :175-184) at B = 16 384 with the profiled idle
+                    share, and humanoid_whole_body_mm (1 mm, six phases,
+                    :188-197) at B = 4 096: the main fields; then the 1 cm
+                    problem with the regularizers at B = 4 096;
   regularized_main — PoseGoal + MinimalDisplacementGoal(0.05) +
                     AvoidJointLimitsGoal(0.05) on bench_suite's ladder at
                     B = 65 536: the same fields, the median secondary fitness
@@ -82,7 +105,9 @@ non-zero:
                     plain version, its FLOP/byte bound and the bound of the
                     generator's integer work (its Philox calls, one call's
                     SASS counted, at the card's IMAD, ALU and issue rates);
-                    the wide instance at both dual paths' launch shapes;
+                    the wide instance at both dual paths' launch shapes,
+                    the high-DOF ones at snake_main's and humanoid_main's
+                    (every G that fits at each shape);
   profile         — torch.profiler over one solve_batch of each path: device
                     time by kernel, device busy and idle share; no torch
                     random-number kernel on the species paths;
@@ -132,7 +157,7 @@ ISSUE_PER_SM_CLK = 128
 # add is one FLOP, so kernels built without FMA (species, peak) reach at
 # most half the FMA-counted PEAK_FP32
 FP32_PER_SM_CLK = 128
-SOURCES = ("megastep", "megastep_wide", "species", "peak")
+SOURCES = ("megastep", "megastep_wide", "megastep_high", "species", "peak")
 # the reference's recommended configuration (tools/bench_suite.py:198-210):
 # PoseGoal + MinimalDisplacementGoal(0.05) + AvoidJointLimitsGoal(0.05)
 REG_PHASES = ((1, 32), (2, 64), (4, 128), (8, 256))
@@ -175,10 +200,38 @@ KIND_CONTROL = {"lookat": "line", "line": "plane", "plane": "line",
 # alike)
 FK_SPREAD = 0.3
 FK_MISS = (0.002, 0.002)
+# the JAX suite's high-DOF rows on the high-DOF megastep instances
+# (csrc/megastep_high.cu; robots, tips and goal kinds in
+# kernels/checks.HIGH_DOF): snake32_position (tools/bench_suite.py:134-142,
+# PositionGoal at 5 mm, max_steps 16) through a plain IKSolver — 4 launches
+# of 4 steps on B · 4 islands · 2 species lanes — and humanoid_whole_body
+# (:175-184, three PoseGoals at 1 cm, AdaptiveBatchSolver's default
+# fractions) and humanoid_whole_body_mm (:188-197, at 1 mm)
+B_SNAKE = 65536
+SNAKE_QUEUE = 4
+SNAKE_STEPS, SNAKE_CHECK = 16, 4
+HB_PHASES = ((1, 32), (2, 64), (4, 128), (8, 128))
+HB_FRACTIONS = (0.75, 0.25, 0.125)
+B_HB = 16384
+HB_QUEUE = 2
+MM_PHASES = ((1, 32), (2, 64), (4, 128), (8, 256), (8, 256), (8, 256))
+MM_FRACTIONS = (0.75, 0.3, 0.2, 0.15, 0.12)
+B_MM = 4096
+MM_QUEUE = 1
+# scenarios of each high-DOF row's regularized solve (+ MinimalDisplacement
+# and AvoidJointLimits at REG_WEIGHT): the path of its secondary-goal
+# instance
+B_HIGH_SEC = 4096
+# lanes of the high-DOF instances' exact FK and fitness checks
+N_HIGH_FK = 131072
 
 
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by")
+# the TPU kernels the megastep and fullstep entries replace (their
+# pl.pallas_call)
+MEGASTEP_TPU = "bio_ik_tpu/kernels/bio2_megastep.py:321"
+FULLSTEP_TPU = "bio_ik_tpu/kernels/bio2_fullstep.py:692"
 
 
 def emit(obj):
@@ -309,6 +362,7 @@ class Smoke:
     def __init__(self):
         import torch
         from bio_ik_tpu_torch import RobotModel, asset_path
+        from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
 
         self.torch = torch
         self.dev = torch.device("cuda")
@@ -324,15 +378,23 @@ class Smoke:
                               for u, _, _ in SPECIES_PATHS}
         self.dual = RobotModel.from_urdf_file(asset_path(DUAL_URDF))
         self.dual_cpu = RobotModel.from_urdf_file(asset_path(DUAL_URDF), device="cpu")
-        self.kernels = {name: {} for name in ("megastep", "megastep_dual",
-                                              "megastep_dual_sec", "species",
-                                              "fullstep", "fullstep_dual", "peak")}
+        # the wide and high-DOF instances' robots: card model, CPU model, tips
+        self.robots = {"dual": (self.dual, self.dual_cpu, DUAL_TIPS)}
+        for name, (urdf, tips, _, _) in HIGH_DOF.items():
+            self.robots[name] = (RobotModel.from_urdf_file(asset_path(urdf)),
+                                 RobotModel.from_urdf_file(asset_path(urdf), device="cpu"),
+                                 tips)
+        self.kernels = {name: {} for name in (
+            "megastep", "megastep_dual", "megastep_dual_sec", "megastep_snake",
+            "megastep_snake_sec", "megastep_humanoid", "megastep_humanoid_sec", "species",
+            "fullstep", "fullstep_dual", "fullstep_snake", "fullstep_humanoid", "peak")}
 
     # -------------------------------------------------------------- 1 --
     def build(self):
         import torch
         from bio_ik_tpu_torch.kernels.build import (BUILD_SECONDS, build_all,
                                                     ptxas_report, ptxas_table)
+        from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
 
         secs = build_all(list(SOURCES))
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
@@ -343,15 +405,23 @@ class Smoke:
         for n in SOURCES:
             for row in ptxas_table(n):
                 emit({"phase": "build", "source": n, **row})
-        # the wide instances: shared memory per block and resident blocks
-        for kinds, terms in ((POSE2_KINDS, ()), (MG_KINDS, REG_TERMS)):
-            mega, _ = self._wide(1, kinds, terms)
+        # the wide and high-DOF instances: shared memory per block at every
+        # G (those the source does not build too) and resident blocks at
+        # the G it builds (0: the block does not fit)
+        for robot, kinds, terms in [("dual", POSE2_KINDS, ()), ("dual", MG_KINDS, REG_TERMS)] + [
+                (robot, kinds, t) for robot, (_, _, kinds, terms) in HIGH_DOF.items()
+                for t in ((), terms)]:
+            mega, sp = self._wide(1, kinds, terms, robot=robot)
             lib = mega._lib(2)
-            emit({"phase": "build", "instance": [17, 2, 2], "inst_kind": kinds,
-                  "sec_terms": terms, "dependency_columns": mega.ncol,
-                  "smem_bytes_by_group": {g: mega.smem_bytes(lib, g) for g in mega.groups},
-                  "resident_blocks_by_group": {g: mega.resident_blocks(lib, self.dev, g)
-                                               for g in mega.groups}})
+            resident = {g: mega.resident_blocks(lib, self.dev, g) for g in mega.groups}
+            emit({"phase": "build", "robot": robot,
+                  "instance": [sp.V, sp.K, len(self.robots[robot][2])], "inst_kind": kinds,
+                  "sec_terms": terms, "source": mega.source,
+                  "dependency_columns": mega.ncol,
+                  "smem_bytes_by_group": {g: mega.smem_bytes(lib, g) for g in (1, 2, 4, 8)},
+                  "resident_blocks_by_group": {g: r or "does not fit"
+                                               for g, r in resident.items()},
+                  "groups_not_built": [g for g in (1, 2, 4, 8) if g not in mega.groups]})
         self.philox_sass = philox_sass_count()
         emit({"phase": "build", "philox_call_sass": self.philox_sass})
 
@@ -378,42 +448,58 @@ class Smoke:
                 None if noise is None else tree_from_numpy(noise, dev))
 
     def _wide(self, n_steps, kinds, terms=(), gens=8, mem_iters=8, memetic="q",
-              model=None, inst_tip=(0, 1)):
-        """The wide (17, 2, 2) megastep on the PR2 dual arm's two grippers."""
+              model=None, inst_tip=None, robot="dual"):
+        """The megastep of a wide or high-DOF instance on ``robot``'s tips
+        (:attr:`robots`), goal instance k of ``kinds`` on tip
+        ``inst_tip[k]`` (default k), every variable active."""
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
 
-        sp = SpeciesParams(V=17, K=2, C=16, gens=gens, mem_iters=mem_iters,
+        card, _, tips = self.robots[robot]
+        model = model or card
+        V, K = model.nvars, len(kinds)
+        sp = SpeciesParams(V=V, K=K, C=16, gens=gens, mem_iters=mem_iters,
                            memetic=memetic)
-        return Megastep(model or self.dual, list(DUAL_TIPS), list(range(17)),
-                        list(inst_tip), sp, n_steps, sec_terms=terms,
-                        inst_kind=list(kinds)), sp
+        return Megastep(model, list(tips), list(range(V)),
+                        list(range(K) if inst_tip is None else inst_tip), sp, n_steps,
+                        sec_terms=terms, inst_kind=list(kinds)), sp
 
-    def _wide_inputs(self, sp, n_steps, N, kinds, terms=(), with_noise=True, seed=7):
+    def _wide_inputs(self, sp, n_steps, N, kinds, terms=(), with_noise=True, seed=7,
+                     robot="dual"):
         from bio_ik_tpu_torch.interop import tree_from_numpy
         from bio_ik_tpu_torch.kernels.checks import megastep_inputs
 
+        _, cpu, tips = self.robots[robot]
         state, consts, noise = megastep_inputs(
-            self.dual_cpu, list(DUAL_TIPS), sp, n_steps, N, seed, inst_kind=list(kinds),
+            cpu, list(tips), sp, n_steps, N, seed, inst_kind=list(kinds),
             sec_terms=terms, with_noise=with_noise)
         return (tree_from_numpy(state, self.dev), tree_from_numpy(consts, self.dev),
                 None if noise is None else tree_from_numpy(noise, self.dev))
 
-    def _wide_check(self, kinds, terms=()):
-        """The wide megastep against its plain version (two steps, noise
-        tensors, N_WIDE_CHECK lanes) at the group size chosen and, bitwise,
-        every group size against G = 1; in-kernel Philox against the plain
-        version's; the floor (the plain version on the CPU against itself on
-        the card, first N_WIDE_FLOOR lanes) and two controls, wrong plain
-        versions: the instances' tips swapped, and the lookat axis negated
-        (or, with two PoseGoals, the rotation weights zeroed).  Fails below
-        min(0.85, floor − 0.03) or when a control reaches CONTROL_LIMIT."""
+    def _fitting_groups(self, mega, N):
+        """The group sizes of ``mega``'s source whose block fits on the card."""
+        lib = mega._lib(N)
+        return [g for g in mega.groups if mega.resident_blocks(lib, self.dev, g) > 0]
+
+    def _wide_check(self, kinds, terms=(), robot="dual"):
+        """A wide or high-DOF megastep against its plain version (two steps,
+        noise tensors, N_WIDE_CHECK lanes) at the group size chosen and,
+        bitwise, every group size that fits against the smallest; in-kernel
+        Philox against the plain version's; the floor (the plain version on
+        the CPU against itself on the card, first N_WIDE_FLOOR lanes) and
+        two controls, wrong plain versions: the instances' tips permuted
+        (one tip: one joint's axis negated in the plain chain), and the
+        lookat axis negated (or, where no instance is a lookat, the rotation
+        weights zeroed; with none of those, the position term dropped).
+        Fails below min(0.85, floor − 0.03) or when a control reaches
+        CONTROL_LIMIT."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw, philox_draw
+        from bio_ik_tpu_torch.kernels.checks import axis_negated
 
         N, n = N_WIDE_CHECK, N_WIDE_FLOOR
-        mega, sp = self._wide(2, kinds, terms)
-        state, consts, noise = self._wide_inputs(sp, 2, N, kinds, terms)
+        mega, sp = self._wide(2, kinds, terms, robot=robot)
+        state, consts, noise = self._wide_inputs(sp, 2, N, kinds, terms, robot=robot)
         keep = noise[4] if terms else None
 
         def kernel(group=None):
@@ -423,33 +509,46 @@ class Smoke:
         def plain(m, st, cs, nz, kp):
             return m.body(st, cs, array_draw(*nz[:4], sp.gens, keep=kp))
 
+        groups = self._fitting_groups(mega, N)
         k_out = kernel()
-        g1 = kernel(1)
+        g0 = kernel(groups[0])
         p_out = plain(mega, state, consts, noise, keep)
         torch.cuda.synchronize()
-        row = {"inst_kind": kinds, "sec_terms": terms, "lanes": N,
+        row = {"robot": robot, "inst_kind": kinds, "sec_terms": terms, "lanes": N,
                "group_chosen": mega.group(mega._lib(N), self.dev, N),
-               "agree_frac": agree_frac(k_out, p_out),
-               "bitwise_vs_g1_frac": {g: bitwise_frac(kernel(g), g1, N)
-                                      for g in mega.groups}}
+               "agree_frac": agree_frac(k_out, p_out), "reference_group": groups[0],
+               "bitwise_vs_reference_group_frac": {g: bitwise_frac(kernel(g), g0, N)
+                                                   for g in groups}}
         cut = lambda xs: tuple(x[..., :n].cpu() for x in xs)  # noqa: E731
-        cpu_mega, _ = self._wide(2, kinds, terms, model=self.dual_cpu)
+        cpu_mega, _ = self._wide(2, kinds, terms, model=self.robots[robot][1], robot=robot)
         c_out = plain(cpu_mega, cut(state), cut(consts), cut(noise),
                       None if keep is None else keep[..., :n].cpu())
         row["plain_cpu_vs_card_agree_frac"] = agree_frac(c_out, cut(p_out))
-        swapped, _ = self._wide(2, kinds, terms, inst_tip=(1, 0))
+        K = len(kinds)
+        if K > 1:
+            chain = "control_tips_permuted_agree_frac"
+            other, _ = self._wide(2, kinds, terms, robot=robot,
+                                  inst_tip=tuple(range(1, K)) + (0,))
+        else:
+            chain = "control_axis_negated_agree_frac"
+            other, _ = self._wide(2, kinds, terms, robot=robot,
+                                  model=axis_negated(self.robots[robot][0], sp.V // 2))
         wrong = list(consts)
+        wrot = consts[mega.const_names.index("wrot")]
         if "lookat" in kinds:
             i = mega.const_names.index("gaux")
             wrong[i] = -wrong[i]
             label = "control_lookat_axis_negated_agree_frac"
-        else:
+        elif bool((wrot != 0).any()):
             i = mega.const_names.index("wrot")
             wrong[i] = torch.zeros_like(wrong[i])
             label = "control_rotation_weight_zero_agree_frac"
-        row["control_tips_swapped_agree_frac"] = agree_frac(
-            g1, plain(swapped, state, consts, noise, keep))
-        row[label] = agree_frac(g1, plain(mega, state, tuple(wrong), noise, keep))
+        else:
+            i = mega.const_names.index("wpos")
+            wrong[i] = torch.zeros_like(wrong[i])
+            label = "control_position_term_dropped_agree_frac"
+        row[chain] = agree_frac(g0, plain(other, state, consts, noise, keep))
+        row[label] = agree_frac(g0, plain(mega, state, tuple(wrong), noise, keep))
         salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
         k1 = mega(state, consts, seed=4321, salt=salt)
         p1 = mega.body(state, consts, philox_draw(4321, salt, sp.V, sp.C, keep=bool(terms)))
@@ -457,14 +556,16 @@ class Smoke:
         row["philox_agree_frac"] = agree_frac(k1, p1)
         row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
         row["control_limit"] = CONTROL_LIMIT
-        controls = [row["control_tips_swapped_agree_frac"], row[label]]
+        controls = [row[chain], row[label]]
         if min(row["agree_frac"], row["philox_agree_frac"]) < row["agree_limit"]:
-            raise AssertionError(f"the wide megastep agrees with its plain version "
+            raise AssertionError(f"the {robot} megastep agrees with its plain version "
                                  f"below its limit: {row}")
-        if min(row["bitwise_vs_g1_frac"].values()) < 1.0:
-            raise AssertionError(f"a group size changes the wide megastep: {row}")
+        if len(groups) < len(mega.groups) and not terms:
+            raise AssertionError(f"a pose-only {robot} group size does not fit: {row}")
+        if min(row["bitwise_vs_reference_group_frac"].values()) < 1.0:
+            raise AssertionError(f"a group size changes the {robot} megastep: {row}")
         if max(controls) >= CONTROL_LIMIT:
-            raise AssertionError(f"a wrong plain version agrees with the wide "
+            raise AssertionError(f"a wrong plain version agrees with the {robot} "
                                  f"megastep: {row}")
         return row
 
@@ -545,24 +646,47 @@ class Smoke:
         self.kernels["megastep_dual"].update(
             agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
             floor_agree_frac=row["plain_cpu_vs_card_agree_frac"])
+        self._high_checks("check", sec=False)
 
-    def _wide_fk_check(self, name, kinds, terms=()):
-        """No selection (zero generations, no memetic, one step) on every
-        lane of the path's first launch: the incumbent then holds the exact
-        FK tips and the exact fitness of every goal instance at parent 0 —
-        the kernel's max_abs_err against the plain version (atol 1e-5)."""
+    def _high_checks(self, phase, sec):
+        """The high-DOF instances (pose-only, or with ``sec`` their checks'
+        secondary terms, kernels/checks.HIGH_DOF) against their plain
+        versions: exact FK and fitness on N_HIGH_FK lanes, then
+        :meth:`_wide_check`."""
+        from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
+
+        for robot, (_, _, kinds, terms) in HIGH_DOF.items():
+            terms = terms if sec else ()
+            name = f"megastep_{robot}" + "_sec" * sec
+            self._wide_fk_check(name, kinds, terms, robot=robot, N=N_HIGH_FK)
+            row = self._wide_check(kinds, terms, robot=robot)
+            emit({"phase": phase, **row})
+            self.kernels[name].update(
+                agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
+                floor_agree_frac=row["plain_cpu_vs_card_agree_frac"],
+                group=row["group_chosen"])
+
+    def _wide_fk_check(self, name, kinds, terms=(), robot="dual", N=None):
+        """No selection (zero generations, no memetic, one step) on ``N``
+        lanes (default: every lane of the multigoal path's first launch):
+        the incumbent then holds the exact FK tips and the exact fitness of
+        every goal instance at parent 0 — the kernel's max_abs_err against
+        the plain version (atol 1e-5)."""
         from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw
         from bio_ik_tpu_torch.kernels.checks import max_abs_err
 
-        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
-        mega, sp = self._wide(1, kinds, terms, gens=0, mem_iters=0, memetic="")
-        state, consts, noise = self._wide_inputs(sp, 1, N, kinds, terms, seed=11)
+        N = N or phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+        mega, sp = self._wide(1, kinds, terms, gens=0, mem_iters=0, memetic="",
+                              robot=robot)
+        state, consts, noise = self._wide_inputs(sp, 1, N, kinds, terms, seed=11,
+                                                 robot=robot)
         keep = noise[4] if terms else None
         k = mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
                  wipe_g=noise[3], keep=keep)
         p = mega.body(state, consts, array_draw(*noise[:4], 0, keep=keep))
         err = max(max_abs_err(k[5], p[5]), max_abs_err(k[4], p[4]))
-        emit({"phase": "check", "instance": [17, 2, 2], "inst_kind": kinds,
+        emit({"phase": "check", "instance": [sp.V, sp.K, len(self.robots[robot][2])],
+              "robot": robot, "inst_kind": kinds, "sec_terms": terms,
               "fk_lanes": N, "fk_fit_max_abs_err": err})
         self.kernels[name]["max_abs_err"] = err
         if not err <= 1e-5:
@@ -753,19 +877,21 @@ class Smoke:
         if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 1.7e-6):
             raise AssertionError(f"quality below the JAX path's: {out}")
 
-    def _dual_bench(self, B, goals, cfg, phases, fractions):
-        """A PR2 dual-arm row of the JAX suite through AdaptiveBatchSolver
-        (tools/bench_suite.py run_config): targets from FK of
-        numpy.random.default_rng(0) uniform draws in the bounds, each
+    def _dual_bench(self, B, goals, cfg, phases, fractions, robot="dual"):
+        """A row of the JAX suite on ``robot`` (the PR2 dual arm, the snake,
+        the humanoid) through AdaptiveBatchSolver, or with ``phases`` None
+        a plain IKSolver (tools/bench_suite.py run_config): targets from FK
+        of numpy.random.default_rng(0) uniform draws in the bounds, each
         position/pose goal given its tip's, seeded at neutral_q().  Returns
         the fields of :meth:`_bench` and the position-goal tips' slots."""
         import numpy as np
         import torch
-        from bio_ik_tpu_torch import AdaptiveBatchSolver, make_fk
+        from bio_ik_tpu_torch import AdaptiveBatchSolver, IKSolver, make_fk
         from bio_ik_tpu_torch.interop import tree_map
 
-        model = self.dual
-        s = AdaptiveBatchSolver(model, goals, cfg, phases=phases, fractions=fractions)
+        model = self.robots[robot][0]
+        s = (IKSolver(model, goals, cfg) if phases is None else
+             AdaptiveBatchSolver(model, goals, cfg, phases=phases, fractions=fractions))
         p = s.problem
         fk = make_fk(model, p.tip_links)
         b = model._np_bounds
@@ -876,6 +1002,107 @@ class Smoke:
                 < out["median_secondary_fitness_without_regularizers"]):
             raise AssertionError(f"the regularizers did not lower the secondary "
                                  f"fitness: {out}")
+
+    def _high_sec_solve(self, robot, goals, cfg, phases, fractions, nlaunch):
+        """The row's problem with MinimalDisplacement and AvoidJointLimits
+        (REG_WEIGHT each) at B_HIGH_SEC scenarios on the secondary-goal
+        instance (:meth:`_drive`'s fields, counts set to 0 just before its
+        counted solve), its secondary fitness beside that of the same
+        targets solved without them."""
+        import torch
+        import bio_ik_tpu_torch.goals as G
+
+        regs = [G.MinimalDisplacementGoal(weight=REG_WEIGHT),
+                G.AvoidJointLimitsGoal(weight=REG_WEIGHT)]
+        s, data, keys, fk, tg, slots = self._dual_bench(
+            B_HIGH_SEC, goals + regs, cfg, phases, fractions, robot=robot)
+        eng = (s.engine if phases is None else s.solvers[0].engine)
+        assert eng.mega.source == "megastep_high" and eng.sec_terms == REG_TERMS
+        lanes = keys.shape[0] * eng.islands * 2
+        res, qa, out = self._drive(s, data, keys, fk, tg, 1, nlaunch, slots)
+        s0, d0, k0, _, _, _ = self._dual_bench(B_HIGH_SEC, goals, cfg, phases, fractions,
+                                               robot=robot)
+        r0 = s0.solve_batch(k0, d0)
+        p = s.problem
+        qa0 = r0.q[:, torch.as_tensor(p.active_vars, device=r0.q.device)]
+        out.update(group_first_launch=eng.mega.group(eng.mega._lib(lanes), self.dev, lanes),
+                   median_secondary_fitness=float(p.fitness_secondary(qa, data).median()),
+                   median_secondary_fitness_without_regularizers=float(
+                       p.fitness_secondary(qa0, data).median()),
+                   success_rate_without_regularizers=float(r0.success.float().mean()))
+        self.kernels[f"megastep_{robot}_sec"]["launches"] = out["launches_per_solve_batch"]
+        if not (out["median_secondary_fitness"]
+                < out["median_secondary_fitness_without_regularizers"]):
+            raise AssertionError(f"the regularizers did not lower the {robot}'s "
+                                 f"secondary fitness: {out}")
+        return out
+
+    def snake_main(self):
+        """The JAX suite's snake32_position: a PositionGoal on the snake's
+        head at 5 mm (dtwist = ∞), max_steps 16 through a plain IKSolver —
+        4 launches of 4 steps on B_SNAKE · 4 islands · 2 species lanes — on
+        the (32, 1, 1) pose-only instance; then the same problem with the
+        two regularizers at B_HIGH_SEC on its secondary-goal instance."""
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import SolverConfig
+
+        goals = [G.PositionGoal(link="head")]
+        cfg = SolverConfig(mode="bio2_memetic", dpos=5e-3, dtwist=float("inf"),
+                           max_steps=SNAKE_STEPS, steps_per_check=SNAKE_CHECK)
+        nlaunch = SNAKE_STEPS // SNAKE_CHECK
+        s, data, keys, fk, tg, slots = self._dual_bench(B_SNAKE, goals, cfg, None, None,
+                                                        robot="snake")
+        eng = s.engine
+        assert eng.mega.source == "megastep_high" and not eng.sec_terms, eng.sec_terms
+        _, _, out = self._drive(s, data, keys, fk, tg, SNAKE_QUEUE, nlaunch, slots)
+        out = {"phase": "snake_main", **out,
+               "regularized": self._high_sec_solve("snake", goals, cfg, None, None, nlaunch),
+               "gpu": smi_line()}
+        emit(out)
+        self.kernels["megastep_snake"]["launches"] = out["launches_per_solve_batch"]
+        if not (out["success_rate"] >= 0.999 and out["median_pos_err_m"] <= 8.5e-7):
+            raise AssertionError(f"snake32_position below its limits: {out}")
+
+    def humanoid_main(self):
+        """The JAX suite's humanoid_whole_body (PoseGoals on both hands and
+        the head at 1 cm, dtwist = ∞, its ladder and AdaptiveBatchSolver's
+        default fractions) at B_HB, with the profiled idle share of one
+        batch, and humanoid_whole_body_mm (the same at 1 mm, its six-phase
+        ladder) at B_MM, on the (30, 3, 3) pose-only instance; then the 1 cm
+        problem with the two regularizers at B_HIGH_SEC on its
+        secondary-goal instance."""
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import SolverConfig
+        from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
+
+        goals = [G.PoseGoal(link=t) for t in HIGH_DOF["humanoid"][1]]
+        out = {"phase": "humanoid_main"}
+        for key, B, dpos, phases, fractions, queue in (
+                ("humanoid_whole_body", B_HB, 1e-2, HB_PHASES, HB_FRACTIONS, HB_QUEUE),
+                ("humanoid_whole_body_mm", B_MM, 1e-3, MM_PHASES, MM_FRACTIONS,
+                 MM_QUEUE)):
+            cfg = SolverConfig(mode="bio2_memetic", dpos=dpos, dtwist=float("inf"))
+            s, data, keys, fk, tg, slots = self._dual_bench(B, goals, cfg, phases,
+                                                            fractions, robot="humanoid")
+            eng = s.solvers[0].engine
+            assert eng.mega.source == "megastep_high" and not eng.sec_terms
+            _, _, row = self._drive(s, data, keys, fk, tg, queue, len(phases), slots)
+            if key == "humanoid_whole_body":
+                prof = self._profile(s, data, keys)
+                row.update(device_idle_share=prof["device_idle_share"], profile=prof)
+                self.kernels["megastep_humanoid"]["launches"] = row[
+                    "launches_per_solve_batch"]
+            out[key] = row
+            del s, data, keys
+        cfg = SolverConfig(mode="bio2_memetic", dpos=1e-2, dtwist=float("inf"))
+        out["regularized"] = self._high_sec_solve("humanoid", goals, cfg, HB_PHASES,
+                                                  HB_FRACTIONS, len(HB_PHASES))
+        out["gpu"] = smi_line()
+        emit(out)
+        for key, med in (("humanoid_whole_body", 1e-3), ("humanoid_whole_body_mm", 3e-5)):
+            if not (out[key]["success_rate"] >= 0.995
+                    and out[key]["median_pos_err_m"] <= med):
+                raise AssertionError(f"{key} below its limits: {out[key]}")
 
     def regularized_main(self):
         """Path (a): the reference's recommended configuration (pose +
@@ -1354,65 +1581,89 @@ class Smoke:
         self._wide_times()
         self._species_times()
 
-    def _wide_rows(self, shapes, kinds, terms=()):
-        """The wide megastep (in-kernel Philox) at each (lanes, n_steps)
-        launch shape, CUDA events, at the group size chosen and every group
-        size it builds, beside ``bound_ms`` (FP32 of the TPU cost model's
+    def _wide_rows(self, shapes, kinds, terms=(), robot="dual"):
+        """A wide or high-DOF megastep (in-kernel Philox) at each distinct
+        (lanes, n_steps) launch shape, CUDA events, at the group size chosen
+        and every group size it builds that fits, beside ``bound_ms`` (FP32
+        of the TPU cost model's
         counts at this instance's V, K; or bytes) and ``int_bound_ms`` (its
-        Philox calls per lane-step, as :meth:`_mega_rows`)."""
+        Philox calls per lane-step, as :meth:`_mega_rows`); one row per
+        launch of ``shapes``."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
             megastep_flops_per_lane, philox_calls_per_lane_step)
 
         clocks_per_call, sm_clocks = self._philox_clocks()
-        rows = []
+        done = {}
         for N, steps in shapes:
-            mega, sp = self._wide(steps, kinds, terms)
+            if (N, steps) in done:
+                continue
+            mega, sp = self._wide(steps, kinds, terms, robot=robot)
             state, consts, _ = self._wide_inputs(sp, steps, N, kinds, terms,
-                                                 with_noise=False)
+                                                 with_noise=False, robot=robot)
             salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
             G = mega.group(mega._lib(N), self.dev, N)
             by = {}
-            for g in mega.groups:
+            for g in self._fitting_groups(mega, N):
                 run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
                 run()
                 torch.cuda.synchronize()
                 by[g] = cuda_ms(run, 2)
             del state, consts
-            V, K, T = sp.V, sp.K, 2
+            V, K, T = sp.V, sp.K, len(self.robots[robot][2])
             flops = megastep_flops_per_lane(sp, steps) * N
-            # state in and out, the goal rows (gaux included), bounds, salt
-            nbytes = 4 * N * (2 * (5 * V + 2 + 7 * T) + 5 * V + 12 * K + 2
-                              + (8 * V if terms else 0))
+            # state in and out, the goal rows (gaux where a kind reads it),
+            # bounds, salt
+            nbytes = 4 * N * (2 * (5 * V + 2 + 7 * T) + 5 * V + (9 + 3 * mega.has_aux) * K
+                              + 2 + (8 * V if terms else 0))
             calls = philox_calls_per_lane_step(sp) * N * steps
             ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
             bound = max(ops_ms, bytes_ms)
-            rows.append({"lanes": N, "n_steps": steps, "group": G, "ms": by[G],
-                         "ms_by_group": by, "gflop": flops / 1e9, "bytes": nbytes,
-                         "philox_calls": calls, "fp32_bound_ms": ops_ms,
-                         "int_bound_ms": calls * clocks_per_call / sm_clocks * 1e3,
-                         "bound_ms": bound,
-                         "bound_by": "bytes" if bound == bytes_ms else "operations",
-                         "ns_per_lane_step": by[G] * 1e6 / (N * steps)})
-        return rows
+            done[N, steps] = {
+                "lanes": N, "n_steps": steps, "group": G, "ms": by[G],
+                "ms_by_group": by, "gflop": flops / 1e9, "bytes": nbytes,
+                "philox_calls": calls, "fp32_bound_ms": ops_ms,
+                "int_bound_ms": calls * clocks_per_call / sm_clocks * 1e3,
+                "bound_ms": bound, "bound_by": "bytes" if bound == bytes_ms else "operations",
+                "ns_per_lane_step": by[G] * 1e6 / (N * steps)}
+            torch.cuda.empty_cache()
+        return [done[shape] for shape in shapes]
 
     def _wide_times(self):
         """The wide instance at both dual paths' four ladder launch shapes,
-        and the plain version beside the kernel at one step on each path's
-        phase-1 lanes (the same Philox bits)."""
+        the high-DOF instances at their paths' launch shapes, and the plain
+        version beside the kernel at one
+        step on each path's phase-1 lanes (the same Philox bits; the snake:
+        a quarter of them)."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_megastep import philox_draw
+        from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
 
-        out = {"phase": "times", "instance": [17, 2, 2], "gpu": smi_line()}
-        for name, key, kinds, terms, shapes in (
-                ("megastep_dual", "pose2", POSE2_KINDS, (),
+        snake = [(B_SNAKE * 4 * 2, SNAKE_CHECK)] * (SNAKE_STEPS // SNAKE_CHECK)
+        hb = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)
+        mm = phase_shapes(MM_PHASES, MM_FRACTIONS, B_MM)
+        reg = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HIGH_SEC)
+        s_kinds = HIGH_DOF["snake"][2]
+        h_kinds = HIGH_DOF["humanoid"][2]
+        for name, key, robot, kinds, terms, shapes in (
+                ("megastep_dual", "pose2", "dual", POSE2_KINDS, (),
                  phase_shapes(DUAL_PHASES, DUAL_FRACTIONS, B_DUAL)),
-                ("megastep_dual_sec", "multigoal", MG_KINDS, REG_TERMS,
-                 phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG))):
-            rows = self._wide_rows(shapes, kinds, terms)
-            N = shapes[0][0]
-            mega, sp = self._wide(1, kinds, terms)
-            state, consts, _ = self._wide_inputs(sp, 1, N, kinds, terms, with_noise=False)
+                ("megastep_dual_sec", "multigoal", "dual", MG_KINDS, REG_TERMS,
+                 phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)),
+                ("megastep_snake", "snake32_position", "snake", s_kinds, (), snake),
+                ("megastep_snake_sec", "snake32_position_regularized", "snake", s_kinds,
+                 REG_TERMS, [(B_HIGH_SEC * 4 * 2, SNAKE_CHECK)]),
+                ("megastep_humanoid", "humanoid_whole_body", "humanoid", h_kinds, (), hb),
+                ("megastep_humanoid", "humanoid_whole_body_mm", "humanoid", h_kinds, (), mm),
+                ("megastep_humanoid_sec", "humanoid_whole_body_regularized", "humanoid",
+                 h_kinds, REG_TERMS, reg[:1])):
+            out = {"phase": "times", "robot": robot, "path": key, "gpu": smi_line()}
+            rows = self._wide_rows(shapes, kinds, terms, robot)
+            N = shapes[0][0] if robot != "snake" else shapes[0][0] // 4
+            mega, sp = self._wide(1, kinds, terms, robot=robot)
+            out["instance"] = [sp.V, sp.K, len(self.robots[robot][2])]
+            state, consts, _ = self._wide_inputs(sp, 1, N, kinds, terms, with_noise=False,
+                                                 robot=robot)
             salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
             draw = lambda: philox_draw(99, salt, sp.V, sp.C, keep=bool(terms))  # noqa: E731
             mega.body(state, consts, draw())
@@ -1421,17 +1672,21 @@ class Smoke:
             torch.cuda.synchronize()
             one_step_ms = cuda_ms(lambda: mega(state, consts, seed=99, salt=salt), 3)
             del state, consts
+            torch.cuda.empty_cache()
             r0 = rows[0]
-            out[key] = {"rows": rows, "ladder_ms": sum(r["ms"] for r in rows),
-                        "plain_one_step_ms": plain_ms, "kernel_one_step_ms": one_step_ms,
-                        "one_step_lanes": N}
+            out.update(rows=rows, ladder_ms=sum(r["ms"] for r in rows),
+                       plain_one_step_ms=plain_ms, kernel_one_step_ms=one_step_ms,
+                       one_step_lanes=N)
+            emit(out)
+            if self.kernels[name].get("ms") is not None:     # a second ladder
+                self.kernels[name][f"{key}_ladder_ms"] = out["ladder_ms"]
+                continue
             self.kernels[name].update(
                 ms=r0["ms"], plain_ms=plain_ms, plain_shape=[N, 1],
                 ms_at_plain_shape=one_step_ms, bound_ms=r0["bound_ms"],
                 bound_by=r0["bound_by"], fp32_bound_ms=r0["fp32_bound_ms"],
                 int_bound_ms=r0["int_bound_ms"], group=r0["group"],
-                ladder_ms=out[key]["ladder_ms"], shape=[N, r0["n_steps"]])
-        emit(out)
+                ladder_ms=out["ladder_ms"], shape=[r0["lanes"], r0["n_steps"]])
 
     def _species_times(self):
         """The species kernel at each species path's launch shape in both
@@ -1627,6 +1882,7 @@ class Smoke:
         self.kernels["megastep_dual_sec"].update(
             agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
             floor_agree_frac=row["plain_cpu_vs_card_agree_frac"])
+        self._high_checks("sec_check", sec=True)
 
     # ------------------------------------------------------- fullstep --
     def fullstep_check(self):
@@ -1710,15 +1966,19 @@ class Smoke:
         if min(frac, frac_p) < 0.85:
             raise AssertionError(f"fullstep kernel agrees on {frac:.3f} / "
                                  f"{frac_p:.3f} of lanes (< 0.85)")
-        self._wide_fullstep_check()
+        for robot in ("dual", "humanoid", "snake"):
+            self._wide_fullstep_check(robot)
         self._wide_kinds_fk_check()
+        self._wide_kinds_fk_check("humanoid")
 
-    def _wide_kinds_fk_check(self):
-        """Every goal kind's exact evaluator in the wide megastep: no
-        selection (zero generations, no memetic, one step) with a PoseGoal
-        on the right gripper and an instance of the kind at weight 1 on the
-        left one, parents FK_SPREAD rad about q* (clipped to the bounds), on
-        every lane of the multigoal path's first launch.  The incumbent then
+    def _wide_kinds_fk_check(self, robot="dual"):
+        """Every goal kind's exact evaluator in a wide or high-DOF megastep:
+        no selection (zero generations, no memetic, one step) with PoseGoals
+        on the other tips (the dual arm's right gripper, the humanoid's
+        hands) and an instance of the kind at weight 1 on the last one (the
+        left gripper, the head), parents FK_SPREAD rad about q* (clipped to
+        the bounds), on every lane of the multigoal path's first launch
+        (the humanoid: N_HIGH_FK lanes).  The incumbent then
         holds parent 0's exact FK tips and fitness: the kernel's
         max_abs_err against the plain version (atol 1e-5).  The controls,
         the plain version with the kind swapped for KIND_CONTROL's and, for
@@ -1733,17 +1993,21 @@ class Smoke:
         from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw
         from bio_ik_tpu_torch.kernels.checks import max_abs_err, megastep_inputs
 
-        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
-        out = {"phase": "fullstep_check", "instance": [17, 2, 2], "fk_lanes": N,
+        _, cpu, tips = self.robots[robot]
+        N = (phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0] if robot == "dual"
+             else N_HIGH_FK)
+        base = ("pose",) * (len(tips) - 1)
+        out = {"phase": "fullstep_check", "robot": robot,
+               "instance": [cpu.nvars, len(tips), len(tips)], "fk_lanes": N,
                "fk_spread": FK_SPREAD, "fk_miss": FK_MISS}
         worst = 0.0
         for kind in LINK_KINDS:
-            kinds = ("pose", kind)
-            mega, sp = self._wide(1, kinds, gens=0, mem_iters=0, memetic="")
-            other, _ = self._wide(1, ("pose", KIND_CONTROL[kind]), gens=0, mem_iters=0,
-                                  memetic="")
+            kinds = base + (kind,)
+            mega, sp = self._wide(1, kinds, gens=0, mem_iters=0, memetic="", robot=robot)
+            other, _ = self._wide(1, base + (KIND_CONTROL[kind],), gens=0, mem_iters=0,
+                                  memetic="", robot=robot)
             state, consts, noise = tree_from_numpy(megastep_inputs(
-                self.dual_cpu, list(DUAL_TIPS), sp, 1, N, 11, spread=FK_SPREAD,
+                cpu, list(tips), sp, 1, N, 11, spread=FK_SPREAD,
                 inst_kind=list(kinds), miss=FK_MISS), self.dev)
             k = mega(state, consts, noise=noise[0], rates=noise[1], wipe_u=noise[2],
                      wipe_g=noise[3])
@@ -1763,46 +2027,66 @@ class Smoke:
             out[kind] = row
             worst = max(worst, row["fk_fit_max_abs_err"])
             if not row["fk_fit_max_abs_err"] <= 1e-5:
-                raise AssertionError(f"wide exact FK/fitness with {kind} disagree: {row}")
+                raise AssertionError(f"{robot} exact FK/fitness with {kind} disagree: {row}")
             if not min(controls) > 1e-5:
                 raise AssertionError(f"the {kind} exact-fitness check cannot tell a "
                                      f"wrong plain version apart: {row}")
         emit(out)
-        entry = self.kernels["megastep_dual"]
+        entry = self.kernels[f"megastep_{robot}"]
         entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
 
-    def _wide_fullstep_check(self):
-        """The wide fullstep (17, 2, 2) once per non-pose goal kind, a
-        PoseGoal on the right gripper and the kind on the left one (rows
-        that miss, so the term acts: checks.megastep_inputs), against
+    def _wide_fullstep_check(self, robot="dual"):
+        """The fullstep of a wide or high-DOF instance against
         make_fullstep_inner on N_WIDE_CHECK lanes (noise tensors and
         Philox), beside the floor (the plain version on the CPU against
-        itself on the card, first N_WIDE_FLOOR lanes) and three controls,
-        wrong plain versions: the instances' tips swapped, the kind's term
-        dropped (its weight zeroed) and the kind swapped for
-        KIND_CONTROL's; then its time at the multigoal path's phase-1
-        lanes beside its bound and the plain version's time."""
+        itself on the card, first N_WIDE_FLOOR lanes) and wrong plain
+        versions: on the dual arm once per non-pose goal kind (a PoseGoal on
+        the right gripper, the kind on the left one), on the humanoid pose
+        only and then once per non-pose kind on the head (PoseGoals on the
+        hands), on the snake its PositionGoal (rows that miss, so each term
+        acts: checks.megastep_inputs).  The controls: the instances' tips
+        permuted (one tip: one joint's axis negated in the plain chain);
+        with a non-pose kind its term dropped (its weight zeroed) and the
+        kind swapped for KIND_CONTROL's; with the pose family only, the
+        rotation weights zeroed (none: the position term dropped).  Then
+        its time at ``time_lanes`` (the multigoal path's phase-1 lanes on
+        the dual arm, the humanoid path's on the others) beside its bound
+        and the plain version's time."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_fullstep import LINK_KINDS, array_draw_gen
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
             Fullstep, fullstep_bytes_per_lane, megastep_flops_per_lane, philox_draw)
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
-        from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
+        from bio_ik_tpu_torch.kernels.checks import (HIGH_DOF, axis_negated,
+                                                     lane_agreement, max_abs_err)
 
-        sp = SpeciesParams(V=17, K=2)
+        card, cpu, tips = self.robots[robot]
+        V = card.nvars
+        if robot == "dual":
+            runs = [("pose", kind) for kind in LINK_KINDS]
+            path_kinds, time_lanes = MG_KINDS, phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+        else:
+            path_kinds = HIGH_DOF[robot][2]
+            runs = [path_kinds] + [path_kinds[:-1] + (kind,) for kind in LINK_KINDS
+                                   if len(path_kinds) > 1]
+            time_lanes = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)[0][0]
         N, n = N_WIDE_CHECK, N_WIDE_FLOOR
-        out = {"phase": "fullstep_check", "instance": [17, 2, 2], "lanes": N}
+        out = {"phase": "fullstep_check", "robot": robot,
+               "instance": [V, len(path_kinds), len(tips)], "lanes": N}
         worst, controls, errs = 1.0, [], []
         salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
 
-        def fullstep(kinds, model=None, inst_tip=(0, 1)):
-            return Fullstep(model or self.dual, list(DUAL_TIPS), list(range(17)),
-                            list(inst_tip), sp, inst_kind=list(kinds))
+        def fullstep(kinds, model=None, inst_tip=None):
+            K = len(kinds)
+            return Fullstep(model or card, list(tips), list(range(V)),
+                            list(range(K) if inst_tip is None else inst_tip),
+                            SpeciesParams(V=V, K=K), inst_kind=list(kinds))
 
-        for kind in LINK_KINDS:
-            kinds = ("pose", kind)
+        for kinds in runs:
+            K = len(kinds)
             fs = fullstep(kinds)
-            state, consts, noise = self._wide_inputs(sp, 1, N, kinds, seed=13)
+            sp = fs.sp
+            state, consts, noise = self._wide_inputs(sp, 1, N, kinds, seed=13, robot=robot)
             args = (state[0], state[1]) + tuple(consts[:-2])
             k_out = fs(*args, noise=noise[0], rates=noise[1])
             p_out = fs.inner(*args, array_draw_gen(noise[0], noise[1]))
@@ -1810,38 +2094,54 @@ class Smoke:
             p2 = fs.inner(*args, philox_draw(77, salt, sp.V, sp.C)(0)[0])
             torch.cuda.synchronize()
             cut = lambda xs: tuple(x[..., :n].cpu() for x in xs)  # noqa: E731
-            c_out = fullstep(kinds, self.dual_cpu).inner(
-                *cut(args), array_draw_gen(*cut(noise[:2])))
+            c_out = fullstep(kinds, cpu).inner(*cut(args), array_draw_gen(*cut(noise[:2])))
             agree = lane_agreement(k_out, p_out)
             errs.append(max(max_abs_err(a, b, agree) for a, b in zip(k_out, p_out)))
             row = {"agree_frac": float(agree.float().mean()),
                    "philox_agree_frac": agree_frac(k2, p2),
                    "plain_cpu_vs_card_agree_frac": agree_frac(c_out, cut(p_out))}
             row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
-            dropped = list(args)
-            i = [nm for nm, _ in fs.rows].index("wpos")
-            dropped[i] = dropped[i].clone()
-            dropped[i][1] = 0.0
-            wrong = {"tips_swapped": (fullstep(kinds, inst_tip=(1, 0)), args),
-                     "term_dropped": (fs, dropped),
-                     "kind_swapped": (fullstep(("pose", KIND_CONTROL[kind])), args)}
+            names = [nm for nm, _ in fs.rows]
+            wrong = {}
+            if K > 1:
+                wrong["tips_permuted"] = (fullstep(kinds, inst_tip=tuple(range(1, K)) + (0,)),
+                                          args)
+            else:
+                wrong["axis_negated"] = (fullstep(kinds, axis_negated(card, V // 2)), args)
+            if kinds[-1] in LINK_KINDS:
+                dropped = list(args)
+                i = names.index("wpos")
+                dropped[i] = dropped[i].clone()
+                dropped[i][K - 1] = 0.0
+                wrong["term_dropped"] = (fs, dropped)
+                wrong["kind_swapped"] = (fullstep(kinds[:-1] + (KIND_CONTROL[kinds[-1]],)),
+                                         args)
+            else:
+                i = names.index("wrot")
+                label = "rotation_weight_zero" if bool((args[i] != 0).any()) else None
+                if label is None:
+                    i, label = names.index("wpos"), "position_term_dropped"
+                zeroed = list(args)
+                zeroed[i] = torch.zeros_like(zeroed[i])
+                wrong[label] = (fs, zeroed)
             for label, (f, a) in wrong.items():
                 row[f"control_{label}_agree_frac"] = agree_frac(
                     k_out, f.inner(*a, array_draw_gen(noise[0], noise[1])))
                 controls.append(row[f"control_{label}_agree_frac"])
-            out[kind] = row
+            out["+".join(kinds)] = row
             if min(row["agree_frac"], row["philox_agree_frac"]) < row["agree_limit"]:
-                raise AssertionError(f"wide fullstep with {kind} below its limit: {row}")
+                raise AssertionError(f"{robot} fullstep with {kinds} below its limit: {row}")
             worst = min(worst, row["agree_frac"], row["philox_agree_frac"])
+            del state, consts, noise, args, k_out, p_out, k2, p2
         out["control_limit"] = CONTROL_LIMIT
         if max(controls) >= CONTROL_LIMIT:
-            raise AssertionError(f"a wrong plain version agrees with the wide "
+            raise AssertionError(f"a wrong plain version agrees with the {robot} "
                                  f"fullstep: {out}")
-        # its time at the multigoal path's phase-1 lanes, counted launches
-        N = phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
-        kinds = MG_KINDS
-        fs = fullstep(kinds)
-        state, consts, noise = self._wide_inputs(sp, 1, N, kinds, seed=13)
+        # its time on the path's kinds, counted launches
+        N = time_lanes
+        fs = fullstep(path_kinds)
+        sp = fs.sp
+        state, consts, noise = self._wide_inputs(sp, 1, N, path_kinds, seed=13, robot=robot)
         args = (state[0], state[1]) + tuple(consts[:-2])
         salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
         noise_run = lambda: fs(*args, noise=noise[0], rates=noise[1])  # noqa: E731
@@ -1853,7 +2153,7 @@ class Smoke:
         launches = Fullstep.launches
         plain_ms = cuda_ms(lambda: fs.inner(*args, array_draw_gen(noise[0], noise[1])), 1)
         flops = megastep_flops_per_lane(sp, 1) * N
-        nbytes = (fullstep_bytes_per_lane(sp, 0) + 4 * 3 * sp.K) * N     # + gaux
+        nbytes = (fullstep_bytes_per_lane(sp, 0) + 4 * 3 * sp.K * fs.has_aux) * N  # + gaux
         nbytes_p = nbytes - 4 * N * (sp.gens * sp.V * sp.C + sp.gens * sp.C)
         ops_ms = flops / PEAK_FP32 * 1e3
         bound = max(ops_ms, nbytes / PEAK_BYTES * 1e3)
@@ -1862,10 +2162,13 @@ class Smoke:
                    launches_timed=launches, noise_tensor_bound_ms=bound,
                    philox_bound_ms=bound_p, gpu=smi_line())
         emit(out)
-        self.kernels["fullstep_dual"].update(
+        self.kernels[f"fullstep_{robot}"].update(
             launches=launches, agree_frac=worst, max_abs_err=max(errs), ms=ms,
-            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes" if bound > ops_ms else "operations", philox_ms=ms_p,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if bound > ops_ms else "operations", philox_ms=ms_p,
             philox_bound_ms=bound_p, lanes=N)
+        del state, consts, noise, args
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ mfu --
     def mfu(self):
@@ -1928,8 +2231,9 @@ class Smoke:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
-                    "main,regularized_main,dual_main,multigoal_main,species_check,"
-                    "species_main,species_sec_main,times,profile,mfu",
+                    "main,regularized_main,dual_main,multigoal_main,snake_main,"
+                    "humanoid_main,species_check,species_main,species_sec_main,times,"
+                    "profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
@@ -1958,13 +2262,18 @@ def main():
         bound_by=k[name].get("bound_by"), library_ms=None,
         **{x: v for x, v in k[name].items() if x not in KERNEL_KEYS})
         for name, src, replaces in (
-            ("megastep", "megastep", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
-            ("megastep_dual", "megastep_wide", "bio_ik_tpu/kernels/bio2_megastep.py:321"),
-            ("megastep_dual_sec", "megastep_wide",
-             "bio_ik_tpu/kernels/bio2_megastep.py:321"),
+            ("megastep", "megastep", MEGASTEP_TPU),
+            ("megastep_dual", "megastep_wide", MEGASTEP_TPU),
+            ("megastep_dual_sec", "megastep_wide", MEGASTEP_TPU),
+            ("megastep_snake", "megastep_high", MEGASTEP_TPU),
+            ("megastep_snake_sec", "megastep_high", MEGASTEP_TPU),
+            ("megastep_humanoid", "megastep_high", MEGASTEP_TPU),
+            ("megastep_humanoid_sec", "megastep_high", MEGASTEP_TPU),
             ("species", "species", "bio_ik_tpu/kernels/bio2_step.py:461"),
-            ("fullstep", "megastep", "bio_ik_tpu/kernels/bio2_fullstep.py:692"),
-            ("fullstep_dual", "megastep_wide", "bio_ik_tpu/kernels/bio2_fullstep.py:692"),
+            ("fullstep", "megastep", FULLSTEP_TPU),
+            ("fullstep_dual", "megastep_wide", FULLSTEP_TPU),
+            ("fullstep_snake", "megastep_high", FULLSTEP_TPU),
+            ("fullstep_humanoid", "megastep_high", FULLSTEP_TPU),
             ("peak", "peak", "tools/bench_mfu.py:85"))]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

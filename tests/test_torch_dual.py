@@ -154,18 +154,26 @@ def _on_card(solver):
 
 def test_card_takes_the_dual_paths_and_names_the_gaps(dual):
     """On a card the fused engine takes ``pr2_dual_pose2`` and
-    ``pr2_dual_multigoal`` (the wide instance), rejects the shapes no
-    source instantiates (ROADMAP item 9), non-pose primaries on a
-    narrow (pose-family) instance and on a floating chain."""
+    ``pr2_dual_multigoal`` (the wide instance) and ``snake32_position`` and
+    ``humanoid_whole_body`` (the high-DOF instances, with and without the
+    regularizers), rejects the shapes no source instantiates (ROADMAP item
+    9: the snake with a joint fixed), non-pose primaries on a narrow
+    (pose-family) instance and on a floating chain."""
     pose2 = IKSolver(dual, [G.PoseGoal(link=R), G.PoseGoal(link=L)])
     assert _on_card(pose2) is None
     assert _on_card(IKSolver(dual, _multigoal(), SolverConfig(**MULTIGOAL_CFG))) is None
+    regs = [G.MinimalDisplacementGoal(weight=0.05), G.AvoidJointLimitsGoal(weight=0.05)]
     for urdf, goals in (("snake.urdf", [G.PositionGoal(link="head")]),
                         ("humanoid.urdf", [G.PoseGoal(link=t)
                                            for t in ("r_hand", "l_hand", "head")])):
         m = RobotModel.from_urdf_file(asset_path(urdf), device="cpu")
-        reason = _on_card(IKSolver(m, goals))
-        assert "not instantiated" in reason and "queue item 9" in reason
+        assert _on_card(IKSolver(m, goals)) is None
+        assert _on_card(IKSolver(m, goals + regs)) is None
+    snake = RobotModel.from_urdf_file(asset_path("snake.urdf"), device="cpu")
+    reason = _on_card(IKSolver(snake, [G.PositionGoal(link="head")],
+                               fixed_joints=[snake.joint_names[2]]))
+    assert "not instantiated" in reason and "(31, 1, 1)" in reason
+    assert "queue item 9" in reason
     arm = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
     look = IKSolver(arm, [G.LookAtGoal(link=R)])
     assert look.engine is not None                 # CPU: the plain version
