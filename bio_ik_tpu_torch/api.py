@@ -1,34 +1,50 @@
-"""Top-level solve API: scenario-batched solving and adaptive retries.
+"""Top-level solve API: island racing, scenario batching, adaptive retries
+and latency mode.
 
-Port of :mod:`bio_ik_tpu.api` for the batched throughput path
-(reference: src/kinematics_plugin.cpp:437-655, src/ik_parallel.h:90-277):
-``IKSolver.solve_batch`` on the fused engine (its fullstep tier for
-revolute/prismatic chains, its species tier for floating/planar ones) and
-``AdaptiveBatchSolver``'s on-device multi-phase pipeline over either tier.  ``solve``,
-``search``, the unfused solvers and ``elite_migration`` wait for ROADMAP.md
-port queue item 5, ``solve_until`` for item 2.
+Port of :mod:`bio_ik_tpu.api` (reference: src/kinematics_plugin.cpp:437-655
+searchPositionIK, src/ik_parallel.h:90-277 IKParallel).  The reference
+races its solver on N threads that share a ``finished`` flag; here islands
+are rows of the solver state, stepped in lock-step, and the race is a
+budget of ``max_steps`` steps with the best accepted solution kept between
+acceptance chunks (winner selection as ik_parallel.h:220-261).
+
+  * ``IKSolver.solve`` / ``search`` — one query on the island path (the
+    unfused solver of ``config.mode``, ``solvers/``), as in the JAX package;
+  * ``IKSolver.solve_batch`` — B queries on the fused engine (its fullstep
+    tier for revolute/prismatic chains, its species tier for floating or
+    planar ones), or on the island path where the fused kernels cannot
+    express the problem (:meth:`FusedBio2Engine.shared_reason`);
+  * ``IKSolver.solve_until`` — latency mode: one query, acceptance checked
+    on the host after each chunk, the first accepted winner returned,
+    optionally against a wall-clock deadline; one megastep launch per chunk
+    on the fullstep tier, the island path otherwise;
+  * ``AdaptiveBatchSolver`` — the multi-phase retry ladder, on the device
+    when every phase has the engine, else with failures compacted on the
+    host.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import time
 from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SolverConfig
-from .engine import FusedBio2Engine, fold_in
+from .engine import FusedBio2Engine, fold_in, mix32, winner
 from .goals import Goal
 from .interop import tree_map
+from .kernels.fk_rows import supports_fullstep_chain
 from .problem import Problem
 from .robot.model import RobotModel
-from .solvers.base import SolverContext
+from .solvers.base import SolverContext, make_solver
 
 __all__ = ["IKSolver", "IKResult", "AdaptiveBatchSolver"]
 
-# bio2 family: the reference's concurrency() (ik_evolution_2.cpp:649)
-_DEFAULT_ISLANDS = 4
+_M32 = 0xFFFFFFFF
 
 
 class IKResult(NamedTuple):
@@ -70,15 +86,30 @@ class IKSolver:
         self.problem = Problem(model, goals, fixed_joints=fixed_joints,
                                active_variables=active_variables, config=config)
         self.ctx = SolverContext(self.problem)
-        self.islands = config.islands or _DEFAULT_ISLANDS
+        self.solver = make_solver(config.mode, self.ctx, config)
+        self.islands = config.islands or self.solver.default_islands
+        self.spc = max(1, min(config.steps_per_check, config.max_steps))
+        self.nchecks = max(1, config.max_steps // self.spc)
+        self.fullstep_chain = supports_fullstep_chain(
+            model, [model.link_index[t] for t in self.problem.tip_links])
+        # steps run by the last solve_until (the iteration count the JAX
+        # package records with ``counter``)
+        self.last_steps = 0
         self.engine = None
+        # why there is no engine; ``kernel_gap`` when only the card lacks a
+        # CUDA instance for the problem — then solve_batch raises rather
+        # than leave the kernel's work to the island path
+        self.unsupported, self.kernel_gap = None, False
         if config.fused == "off" or config.elite_migration:
-            self.unsupported = ("the unfused solvers are not ported yet "
-                                "(ROADMAP.md, port queue item 5)")
+            self.unsupported = ("fused='off'" if config.fused == "off"
+                                else "elite_migration runs on the island path")
         else:
-            self.unsupported = FusedBio2Engine.supports(self)
+            self.unsupported = FusedBio2Engine.shared_reason(self)
             if self.unsupported is None:
-                self.engine = FusedBio2Engine(self)
+                self.unsupported = FusedBio2Engine.card_reason(self)
+                self.kernel_gap = self.unsupported is not None
+                if not self.kernel_gap:
+                    self.engine = FusedBio2Engine(self)
 
     @classmethod
     def for_tips(cls, model: RobotModel, tip_links: Sequence[str],
@@ -121,26 +152,147 @@ class IKSolver:
         v = torch.minimum(torch.maximum(v, lo), hi)
         return torch.where(rev, v, qa)
 
+    # ------------------------------------------------------------------
+    # island path (JAX api.py:270-345)
+    def _key(self, key):
+        """``(2,)`` int64 key words on the solver's device; default the
+        words of ``jax.random.PRNGKey(config.seed)``."""
+        if key is None:
+            key = [0, self.config.seed & _M32]
+        return torch.as_tensor(key, device=self.device).to(torch.int64) & _M32
+
+    def _generator(self, keys) -> torch.Generator:
+        """The one random stream of an island solve, seeded from every word
+        of ``keys (B, 2)`` through the port's integer hash (one host read)."""
+        lo, hi = 0x5EED, 0x1D15
+        for w0, w1 in torch.as_tensor(keys).reshape(-1, 2).tolist():
+            lo = mix32(lo ^ mix32((w0 & _M32) ^ mix32(w1 & _M32)))
+            hi = mix32(hi ^ mix32((w1 & _M32) ^ mix32((w0 & _M32) ^ 0x68E31DA4)))
+        g = torch.Generator(device=self.device)
+        g.manual_seed((hi << 32) | lo)
+        return g
+
+    def _init_islands(self, keys, data):
+        """Solver state of ``B · islands`` rows (scenario-major) and the
+        first winner.  Every island starts from the seed (JAX
+        bio2.py:84-102).  Returns ``(state, best, data_r)``, ``data_r``
+        being ``data`` repeated per island."""
+        B, I = keys.shape[0], self.islands
+        data_r = tree_map(lambda x: x[:, None].expand((B, I) + x.shape[1:])
+                          .reshape((B * I,) + x.shape[1:]), data)
+        state = self.solver.init(self._generator(keys), data_r)
+        return state, self._eval_islands(state, data, data_r), data_r
+
+    def _eval_islands(self, state, data, data_r):
+        """Winner per scenario among its islands' incumbents (reference:
+        ik_parallel.h:220-261; :func:`engine.winner`)."""
+        qa, fit = self.solver.solution(state, data_r)
+        tips = self.ctx.tips_packed(data_r["seed_full"], qa)
+        B, I = data["seed_active"].shape[0], self.islands
+        return winner(self.problem, qa.reshape(B, I, -1), fit.reshape(B, I),
+                      tips.reshape((B, I) + tips.shape[1:]), data)
+
+    def _chunk(self, state, best, data, data_r):
+        """``steps_per_check`` solver steps, then one acceptance evaluation
+        (reference: 4 steps per timeout/solution check, ik_parallel.h:165-168)."""
+        for _ in range(self.spc):
+            state = self.solver.step(state, data_r)
+        best = FusedBio2Engine._merge(best, self._eval_islands(state, data, data_r))
+        if self.config.elite_migration:
+            # broadcast each scenario's running best into its islands
+            # (island-model extension, no reference analog; Solver.inject)
+            I = self.islands
+            state = self.solver.inject(state, best[0].repeat_interleave(I, 0),
+                                       best[1].repeat_interleave(I, 0))
+        return state, best
+
+    def _result(self, best, data) -> IKResult:
+        qa, fit, ok, _ = best
+        qa = self._rewrap(qa, data["seed_active"])
+        return IKResult(q=self.ctx.qfull(data["seed_full"], qa), success=ok,
+                        fitness=fit, qa=qa)
+
+    def _solve_batch(self, keys, data) -> IKResult:
+        """B queries on the island path, each with ``islands`` islands."""
+        state, best, data_r = self._init_islands(keys, data)
+        for _ in range(self.nchecks):
+            state, best = self._chunk(state, best, data, data_r)
+        return self._result(best, data)
+
+    # ------------------------------------------------------------------
     def solve_batch(self, keys, data) -> IKResult:
         """Solve B queries at once.  Every leaf of ``data`` carries a
         leading batch axis; ``keys`` is a ``(B, 2)`` integer tensor of
-        32-bit words (a raw JAX ``PRNGKey`` per scenario)."""
-        if self.engine is None:
+        32-bit words (a raw JAX ``PRNGKey`` per scenario).  The fused engine
+        runs it; where the fused kernels cannot express the problem, the
+        island path does, as in the JAX package; where only the card lacks
+        the problem's kernel instance, this raises."""
+        if self.engine is not None:
+            return self.engine.solve_batch(keys, data)
+        if self.kernel_gap:
             raise NotImplementedError(self.unsupported)
-        return self.engine.solve_batch(keys, data)
+        return self._solve_batch(keys, data)
 
     def solve(self, q_seed, key=None, data=None) -> IKResult:
-        raise NotImplementedError(
-            "single-query solve is not ported yet (ROADMAP.md, port queue "
-            "item 5)")
+        """Solve one query on the island path (JAX api.py:371-388).
+        ``q_seed (Vfull,)`` seeds every island; ``data`` (optional) is a
+        :meth:`make_data` dict with updated goal parameters; ``key`` is two
+        32-bit words (default: those of ``PRNGKey(config.seed)``)."""
+        if data is None:
+            data = self.make_data(q_seed)
+        res = self._solve_batch(self._key(key)[None],
+                                tree_map(lambda x: x[None], data))
+        return tree_map(lambda x: x[0], res)
 
-    def search(self, q_seed, key=None, data=None, **kwargs):
-        raise NotImplementedError(
-            "search is not ported yet (ROADMAP.md, port queue item 5)")
+    def search(self, q_seed, key=None, data=None, *,
+               return_approximate_solution=False, solution_callback=None):
+        """MoveIt-style search on top of :meth:`solve` (reference:
+        kinematics_plugin.cpp:638-654): ``None`` instead of an unaccepted
+        result unless ``return_approximate_solution``; ``solution_callback``
+        ``(IKResult) -> bool`` (the analog of MoveIt's IKCallbackFn) is a
+        host-side filter that can reject an accepted solution."""
+        res = self.solve(q_seed, key=key, data=data)
+        if not bool(res.success) and not return_approximate_solution:
+            return None
+        if solution_callback is not None and not solution_callback(res):
+            return None
+        return res
 
-    def solve_until(self, q_seed, key=None, data=None, timeout_s=None):
-        raise NotImplementedError(
-            "latency mode is not ported yet (ROADMAP.md, port queue item 2)")
+    def solve_until(self, q_seed, key=None, data=None, timeout_s=None) -> IKResult:
+        """Latency mode (JAX api.py:406-456): ``steps_per_check``-step
+        chunks, stopping at the first chunk whose winner is accepted — the
+        reference's first-success-cancels-the-rest race (ik_parallel.h:160-190).
+        ``timeout_s`` replaces the step budget with a wall-clock deadline
+        (kinematics_plugin.cpp:506-507); at least one chunk runs.
+
+        On the engine's fullstep tier each chunk is one megastep launch
+        (:meth:`FusedBio2Engine.solve_until`); otherwise the island path
+        runs it — a floating or planar chain, or a problem the fused
+        kernels cannot express.  A fullstep chain whose kernel instance the
+        card lacks raises.  ``last_steps`` holds the steps run."""
+        key = self._key(key)
+        if data is None:
+            data = self.make_data(q_seed)
+        if self.engine is not None and self.engine.fullstep:
+            res, self.last_steps = self.engine.solve_until(key, data,
+                                                           timeout_s=timeout_s)
+            return res
+        if self.kernel_gap and self.fullstep_chain:
+            raise NotImplementedError(self.unsupported)
+        t_start = time.perf_counter()
+        deadline = None if timeout_s is None else t_start + timeout_s
+        data_b = tree_map(lambda x: x[None], data)
+        state, best, data_r = self._init_islands(key[None], data_b)
+        steps = 0
+        for _ in (itertools.count() if timeout_s is not None else range(self.nchecks)):
+            state, best = self._chunk(state, best, data_b, data_r)
+            steps += self.spc
+            if bool(best[2][0]):      # the success flag: host-side early exit
+                break
+            if deadline is not None and time.perf_counter() >= deadline:
+                break
+        self.last_steps = steps
+        return tree_map(lambda x: x[0], self._result(best, data_b))
 
 
 class AdaptiveBatchSolver:
@@ -211,7 +363,31 @@ class AdaptiveBatchSolver:
                         qa=put(res.qa, sub.qa))
 
     def solve_batch(self, keys, data) -> IKResult:
-        for s in self.solvers:
-            if s.engine is None:
-                raise NotImplementedError(s.unsupported)
-        return self._adaptive_on_device(keys, data)
+        if all(s.engine is not None for s in self.solvers):
+            return self._adaptive_on_device(keys, data)
+        return self._adaptive_on_host(keys, data)
+
+    def _adaptive_on_host(self, keys, data):
+        """The ladder where a phase has no engine (JAX api.py:126-163): the
+        failures of each phase, read on the host, re-solved by the next in
+        chunks of ``chunk_fraction·B`` (padded by repeating entries); a
+        retry is adopted where it succeeds or fits better."""
+        res = self.solvers[0].solve_batch(keys, data)
+        B = keys.shape[0]
+        chunk = max(1, int(B * self.chunk_fraction))
+        for phase_idx, solver in enumerate(self.solvers[1:], start=1):
+            fail = np.flatnonzero(~res.success.cpu().numpy())
+            if fail.size == 0:
+                break
+            for lo in range(0, fail.size, chunk):
+                idx = torch.as_tensor(fail[lo:lo + chunk], device=keys.device)
+                pad = torch.as_tensor(np.resize(fail[lo:lo + chunk], chunk),
+                                      device=keys.device)
+                sub = solver.solve_batch(fold_in(keys[pad], phase_idx),
+                                         tree_map(lambda x: x[pad], data))
+                n = idx.shape[0]
+                take = sub.success[:n] | (sub.fitness[:n] < res.fitness[idx])
+                upd, src = idx[take], torch.nonzero(take)[:, 0]
+                res = IKResult(*(full.index_copy(0, upd, new[src])
+                                 for full, new in zip(res, sub)))
+        return res

@@ -23,10 +23,13 @@ in-kernel kinds (lookat, line, plane, max/min_distance, cone, direction,
 side) on the fullstep tier (the rows of :meth:`_goal_rows`); joint-space
 secondary goals run in-kernel on both tiers (the packed rows of
 :meth:`_secondary_rows`: per-generation pre-selection and the combined
-memetic line search).  ``solve_until`` waits for item 2.  On a card, a
-problem whose kernel shape no CUDA source instantiates, or whose goal
-kinds its instance does not evaluate, is rejected by :meth:`supports`
-(item 9).
+memetic line search).  :meth:`FusedBio2Engine.solve_until` is latency mode
+on the fullstep tier: one query, one megastep launch per acceptance chunk,
+early exit on the host.  A problem the fused kernels cannot express at all
+(:meth:`FusedBio2Engine.shared_reason`, as in the JAX engine) runs on the
+island path of ``api.py``; on a card, a problem whose kernel shape no CUDA
+source instantiates, or whose goal kinds its instance does not evaluate,
+is rejected (:meth:`FusedBio2Engine.card_reason`, item 9).
 
 Randomness.  Per-scenario keys are ``(B, 2)`` integer tensors of 32-bit
 words (the layout of a raw JAX ``PRNGKey``).  :func:`_scenario_salt` equals
@@ -51,6 +54,7 @@ under split keys outside its kernel (engine.py:705-715); the streams differ.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -65,7 +69,7 @@ from .kernels.fk_rows import FkRows, supports_fullstep_chain
 from .math.frame import Frame
 from .solvers.bio2 import quat_gene_slices
 
-__all__ = ["FusedBio2Engine", "fold_in", "mix32"]
+__all__ = ["FusedBio2Engine", "fold_in", "mix32", "winner"]
 
 _S = 2   # species per island (reference: ik_evolution_2.cpp:141)
 _C = 16
@@ -148,6 +152,39 @@ def _as_int32(u):
     return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
 
 
+def winner(problem, qa, fit, tips, data):
+    """Winner per scenario among ``L`` candidates — ``qa (B, L, V)``,
+    ``fit (B, L)``, exact-FK ``tips (B, L, T, 7)``, ``data`` with a leading
+    B axis — (reference: ik_parallel.h:220-261): successes before failures,
+    each ranked by fitness (successes by primary + secondary when the
+    problem has secondary goals).  Returns ``(qa, fit, ok, rank)`` of the
+    winners; ``rank`` is the key :meth:`FusedBio2Engine._merge` compares."""
+    p = problem
+    B, L, V = qa.shape
+    T = tips.shape[2]
+
+    def per_cand(x):
+        return x[:, None].expand((B, L) + x.shape[1:]).reshape(
+            (B * L,) + x.shape[1:])
+
+    t = tips.reshape(B * L, T, 7)
+    qa_c, data_c = qa.reshape(B * L, V), tree_map(per_cand, data)
+    ok = p.check_solution(Frame(pos=t[..., 0:3], quat=t[..., 3:7]), qa_c,
+                          data_c).reshape(B, L)
+    if p.has_secondary:
+        # successes ranked by primary + secondary, failures by primary
+        # (JAX engine.py:615-619)
+        fsec = p.fitness_secondary(qa_c, data_c).reshape(B, L)
+        rank = torch.where(ok, fit + fsec, fit)
+    else:
+        rank = fit
+    any_ok = torch.any(ok, dim=1, keepdim=True)
+    sel = torch.where(ok == any_ok, rank, float("inf"))
+    i = torch.argmin(sel, dim=1)
+    bi = torch.arange(B, device=i.device)
+    return qa[bi, i], fit[bi, i], ok[bi, i], rank[bi, i]
+
+
 class FusedBio2Engine:
     """Batched bio2 solve with a fused kernel in the hot loop."""
 
@@ -199,7 +236,16 @@ class FusedBio2Engine:
     # ------------------------------------------------------------------
     @staticmethod
     def supports(iksolver) -> Optional[str]:
-        """None when a fused tier applies, else the reason."""
+        """None when a fused tier applies, else the reason
+        (:meth:`shared_reason`, then :meth:`card_reason`)."""
+        return (FusedBio2Engine.shared_reason(iksolver)
+                or FusedBio2Engine.card_reason(iksolver))
+
+    @staticmethod
+    def shared_reason(iksolver) -> Optional[str]:
+        """Why the fused kernels cannot express the problem at all — the
+        JAX engine's own reasons (its ``supports``), for which both packages
+        solve on the island path — or None."""
         p = iksolver.problem
         if iksolver.config.mode not in _MEMETIC_OF_MODE:
             return f"mode {iksolver.config.mode!r} is not a fused bio2 family"
@@ -225,26 +271,38 @@ class FusedBio2Engine:
         V = len(p.active_vars)
         if V > _MAX_FUSED_VARS:
             return f"{V} active variables exceed the unroll guard"
-        if p.device.type == "cuda":
-            K = sum(grp.count for grp in p.primary)
-            shape = (V, K, p.ntips)
-            if fullstep and not any(shape in x for x in MEGASTEP_SOURCES.values()):
-                have = ", ".join(f"csrc/{src}.cu {list(shapes)}"
-                                 for src, shapes in MEGASTEP_SOURCES.items())
-                return (f"the megastep kernel is not instantiated for "
-                        f"(V, K, T) = {shape} ({have}; ROADMAP.md, port queue item 9)")
-            if fullstep and shape in MEGASTEP_SOURCES["megastep"] and any(
-                    grp.kind not in POSE_KINDS for grp in p.primary):
-                return (f"the (V, K, T) = {shape} megastep instance evaluates the "
-                        "pose family only (csrc/megastep.cu; the other kinds run "
-                        "on the csrc/megastep_wide.cu and csrc/megastep_high.cu "
-                        "instances; ROADMAP.md, port queue item 9)")
-            qmask = quat_mask(quat_gene_slices(model, p.active_vars))
-            if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
-                return (f"the species kernel is not instantiated for (V, K) = "
-                        f"{(V, K)} with quaternion mask {qmask} (csrc/species.cu "
-                        f"has (V, K, mask) {list(SPECIES_SHAPES)}; ROADMAP.md, port "
-                        "queue item 9)")
+        return None
+
+    @staticmethod
+    def card_reason(iksolver) -> Optional[str]:
+        """On a card, why no CUDA instance runs the problem (a gap of the
+        port that the JAX package's traced kernels do not have), or None."""
+        p = iksolver.problem
+        if p.device.type != "cuda":
+            return None
+        model = p.model
+        fullstep = supports_fullstep_chain(
+            model, [model.link_index[t] for t in p.tip_links])
+        V = len(p.active_vars)
+        K = sum(grp.count for grp in p.primary)
+        shape = (V, K, p.ntips)
+        if fullstep and not any(shape in x for x in MEGASTEP_SOURCES.values()):
+            have = ", ".join(f"csrc/{src}.cu {list(shapes)}"
+                             for src, shapes in MEGASTEP_SOURCES.items())
+            return (f"the megastep kernel is not instantiated for "
+                    f"(V, K, T) = {shape} ({have}; ROADMAP.md, port queue item 9)")
+        if fullstep and shape in MEGASTEP_SOURCES["megastep"] and any(
+                grp.kind not in POSE_KINDS for grp in p.primary):
+            return (f"the (V, K, T) = {shape} megastep instance evaluates the "
+                    "pose family only (csrc/megastep.cu; the other kinds run "
+                    "on the csrc/megastep_wide.cu and csrc/megastep_high.cu "
+                    "instances; ROADMAP.md, port queue item 9)")
+        qmask = quat_mask(quat_gene_slices(model, p.active_vars))
+        if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
+            return (f"the species kernel is not instantiated for (V, K) = "
+                    f"{(V, K)} with quaternion mask {qmask} (csrc/species.cu "
+                    f"has (V, K, mask) {list(SPECIES_SHAPES)}; ROADMAP.md, port "
+                    "queue item 9)")
         return None
 
     # ------------------------------------------------------------------
@@ -449,48 +507,12 @@ class FusedBio2Engine:
         V, T, L = self.sp.V, self.problem.ntips, self.islands * _S
         B = data["seed_active"].shape[0]
         M = B * L
-        return self._winner(sol_r[:, :M].T.reshape(B, L, V),
-                            sol_fit_r[:, :M].T.reshape(B, L),
-                            sol_tips_r[:, :M].T.reshape(B, L, T, 7), data)
-
-    def _winner(self, qa, fit, tips, data):
-        """Winner per scenario among ``L`` candidates — ``qa (B, L, V)``,
-        ``fit (B, L)``, exact-FK ``tips (B, L, T, 7)`` — (reference:
-        ik_parallel.h:220-261): successes before failures, each ranked by
-        fitness (successes by primary + secondary when the problem has
-        secondary goals).  Returns ``(qa, fit, ok, rank)`` of the winners."""
-        p = self.problem
-        B, L, V = qa.shape
-        T = tips.shape[2]
-
-        def per_cand(x):
-            return x[:, None].expand((B, L) + x.shape[1:]).reshape(
-                (B * L,) + x.shape[1:])
-
-        t = tips.reshape(B * L, T, 7)
-        qa_c, data_c = qa.reshape(B * L, V), tree_map(per_cand, data)
-        ok = p.check_solution(Frame(pos=t[..., 0:3], quat=t[..., 3:7]), qa_c,
-                              data_c).reshape(B, L)
-        if p.has_secondary:
-            # successes ranked by primary + secondary, failures by primary
-            # (JAX engine.py:615-619)
-            fsec = p.fitness_secondary(qa_c, data_c).reshape(B, L)
-            rank = torch.where(ok, fit + fsec, fit)
-        else:
-            rank = fit
-        any_ok = torch.any(ok, dim=1, keepdim=True)
-        sel = torch.where(ok == any_ok, rank, float("inf"))
-        i = torch.argmin(sel, dim=1)
-        bi = torch.arange(B, device=i.device)
-        return qa[bi, i], fit[bi, i], ok[bi, i], rank[bi, i]
+        return winner(self.problem, sol_r[:, :M].T.reshape(B, L, V),
+                      sol_fit_r[:, :M].T.reshape(B, L),
+                      sol_tips_r[:, :M].T.reshape(B, L, T, 7), data)
 
     def _result(self, best, data):
-        from .api import IKResult
-
-        qa_w, fit_w, ok_w, _ = best
-        qa_w = self.iksolver._rewrap(qa_w, data["seed_active"])
-        qfull_w = self.ctx.qfull(data["seed_full"], qa_w)
-        return IKResult(q=qfull_w, success=ok_w, fitness=fit_w, qa=qa_w)
+        return self.iksolver._result(best, data)
 
     # ------------------------------------------------------------------
     # species tier (JAX engine.py:676-839)
@@ -594,7 +616,7 @@ class FusedBio2Engine:
         sol_tips = seed_tips[:, None].expand(B, I, T, 7)
 
         def eval_islands():
-            return self._winner(solution, sol_fit, sol_tips, data)
+            return winner(self.problem, solution, sol_fit, sol_tips, data)
 
         best = eval_islands()
         for c in range(self.nchecks):
@@ -632,14 +654,48 @@ class FusedBio2Engine:
             return self._species_solve(keys, data)
         state, consts, salt, best = self._mega_prep(keys, data)
         for c in range(self.nchecks):
-            state = self._mega_once(c, salt, state, consts)
-            best = self._merge(
-                best, self._eval_lanes(state[3], state[4], state[5], data))
+            state, best = self._mega_chunk(c, salt, state, consts, best, data)
         return self._result(best, data)
 
     def solve_batch(self, keys, data):
         return self._solve_batch(keys, data)
 
+    def _mega_chunk(self, c: int, salt, state, consts, best, data):
+        """Acceptance chunk ``c``: one megastep launch, the lane winner, the
+        merge — no host synchronization."""
+        state = self._mega_once(c, salt, state, consts)
+        return state, self._merge(
+            best, self._eval_lanes(state[3], state[4], state[5], data))
+
     def solve_until(self, key, data, timeout_s=None, max_checks=None):
-        raise NotImplementedError(
-            "latency mode is not ported yet (ROADMAP.md, port queue item 2)")
+        """Latency mode on the megastep tier (JAX engine.py:846-893): one
+        megastep launch per ``steps_per_check`` chunk, the host polling the
+        winner's success flag after each and stopping at the first accepted
+        winner — the reference's "best accepted solution within ``timeout``
+        seconds" (kinematics_plugin.cpp:506-507, ik_parallel.h:160-168).
+
+        ``key (2,)`` and ``data`` are one unbatched query.  ``timeout_s``,
+        when given, replaces the step budget: chunks run until acceptance or
+        the deadline (at least one runs).  Returns ``(IKResult, steps)``
+        with unbatched leaves; chunk ``c`` draws as chunk ``c`` of
+        :meth:`solve_batch` does, so a query that never succeeds returns its
+        result bit for bit."""
+        if not self.fullstep:
+            raise ValueError("solve_until latency mode needs the megastep kernel tier")
+        t0 = time.perf_counter()
+        deadline = None if timeout_s is None else t0 + timeout_s
+        keys = key[None]
+        data_b = tree_map(lambda x: x[None], data)
+        state, consts, salt, best = self._mega_prep(keys, data_b)
+        if max_checks is None:
+            max_checks = self.nchecks if timeout_s is None else 1 << 30
+        steps = 0
+        for c in range(max_checks):
+            state, best = self._mega_chunk(c, salt, state, consts, best, data_b)
+            steps += self.spc
+            if bool(best[2][0]):      # the success flag: host-side early exit
+                break
+            if deadline is not None and time.perf_counter() >= deadline:
+                break
+        res = self._result(best, data_b)
+        return tree_map(lambda x: x[0], res), steps

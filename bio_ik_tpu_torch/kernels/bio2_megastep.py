@@ -233,7 +233,7 @@ def array_draw(noise, rates, wipe_u, wipe_g, gens: int, keep=None):
 
 
 def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
-                keep: bool = False):
+                keep: bool = False, lane=None):
     """``draw(i)`` from the Philox stream the CUDA kernel draws in-kernel
     (``draw_gen(g)`` of one generation, or of a ``(G, 1, 1)`` int64 tensor
     of generations at once, with a leading G axis):
@@ -248,7 +248,9 @@ def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
     with ``keep`` (secondary goals) that draw's last word is the
     pre-selection uniform; the wipe coin and restart genes are words 0 and
     ``1 + v`` of draws 0, 1, … (four words each) of generation word
-    ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt."""
+    ``0xFFFFFFFF``.  ``salt`` is the ``(1, N)`` int32 per-lane salt;
+    ``lane`` (default ``0 … N−1``) the ``(1, N)`` int64 lane index each
+    column had in its launch — several launches' lanes side by side."""
     if gauss_mode not in GAUSS_MODES:
         raise ValueError(f"gauss_mode must be one of {GAUSS_MODES}")
     if C > _MAX_C:
@@ -256,7 +258,8 @@ def philox_draw(seed: int, salt, V: int, C: int, gauss_mode: str = "clt4",
     dev = salt.device
     salt64 = salt.to(torch.int64) & 0xFFFFFFFF
     N = salt.shape[-1]
-    lane = torch.arange(N, device=dev, dtype=torch.int64)[None, :]
+    if lane is None:
+        lane = torch.arange(N, device=dev, dtype=torch.int64)[None, :]
     NC = clt4_calls(V)
     gidx = torch.arange(C * NC if gauss_mode == "clt4" else V * C, device=dev,
                         dtype=torch.int64)[:, None]

@@ -60,8 +60,7 @@ def quat_mul(a, b):
 
 def quat_conj(q):
     """Conjugate (= inverse for unit quaternions; reference: frame.h:189-196)."""
-    sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
-    return q * sign
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 quat_inv = quat_conj

@@ -12,8 +12,8 @@ max_distance, min_distance, line, plane, side, direction, cone) and the
 five joint-space kinds (avoid_joint_limits, center_joints, regularization,
 minimal_displacement, joint_variable, also as secondary goals).  Touch,
 balance and the function goals raise ``NotImplementedError`` at
-construction, naming ROADMAP.md port queue item 5 (the unfused solvers
-evaluate them).
+construction, naming ROADMAP.md port queue item 5d (only the unfused
+solvers evaluate them).
 """
 
 from __future__ import annotations
@@ -66,6 +66,19 @@ class GoalGroup:
     weight_sq: np.ndarray = field(default_factory=lambda: np.zeros(0))
     # acceptance classification (reference: problem.cpp:153-176)
     goal_type: str = "unknown"
+    # index tensors built from the static arrays, per device (a host copy
+    # per evaluation would synchronize the card each time)
+    _on_device: Dict[Any, torch.Tensor] = field(default_factory=dict, repr=False,
+                                                compare=False)
+
+    def index(self, name: str, device) -> torch.Tensor:
+        """``tip_slots`` or the static array ``name`` as a tensor on
+        ``device``, built once."""
+        key = (name, torch.device(device))
+        if key not in self._on_device:
+            arr = self.tip_slots if name == "tip_slots" else self.static[name]
+            self._on_device[key] = torch.as_tensor(arr, device=device)
+        return self._on_device[key]
 
     @property
     def count(self) -> int:
@@ -104,7 +117,7 @@ class Problem:
             if kind not in _PORTED_KINDS:
                 raise NotImplementedError(
                     f"goal kind {kind or type(g).__name__!r} is not ported yet "
-                    "(ROADMAP.md, port queue item 5)")
+                    "(ROADMAP.md, port queue item 5d)")
             # secondary goals are joint-space goals (JAX problem.py:154-168;
             # joint_function, the other one, raised above)
             if g.secondary and kind not in _JOINT_KINDS:
@@ -242,7 +255,7 @@ class Problem:
                     e = _EVALUATORS[grp.kind](self, grp, gdata, tips, qa, data)
                     ok &= torch.all(gdata["weight_sq"] * e < dmax * dmax, dim=-1)
                 continue
-            slots = torch.as_tensor(grp.tip_slots, device=ok.device)
+            slots = grp.index("tip_slots", ok.device)
             tp = tips_frame.pos[..., slots, :]
             tq = tips_frame.quat[..., slots, :]
             if grp.goal_type in ("position", "pose") and math.isfinite(dpos):
@@ -330,6 +343,9 @@ def _build_jv(problem, items):
         vidx.append(v)
     grp.static["slots"] = np.asarray(slots, np.int64)
     grp.static["vidx"] = np.asarray(vidx, np.int64)
+    # gather indices: the active slot (0 where inactive) and the mask
+    grp.static["slot"] = np.maximum(grp.static["slots"], 0)
+    grp.static["active"] = grp.static["slots"] >= 0
     grp.params["target"] = np.asarray([g.variable_position for g, _ in items])
     return grp
 
@@ -375,7 +391,7 @@ _BUILDERS = {
 
 
 def _tip_pq(tips, grp):
-    slots = torch.as_tensor(grp.tip_slots, device=tips.device)
+    slots = grp.index("tip_slots", tips.device)
     return tips[..., slots, 0:3], tips[..., slots, 3:7]
 
 
@@ -497,20 +513,19 @@ def _eval_md(problem, grp, gdata, tips, qa, data):
     return _per_instance(torch.sum(d * d, dim=-1), grp)
 
 
-def _gather_goal_vars(problem, slots, vidx, qa, data):
+def _gather_goal_vars(problem, grp, qa, data):
     """Variable values for goal variables: from ``qa`` when active, else
     from the seed (reference: GoalContext::getVariablePosition negative-
     index convention, goal.h:70-77)."""
     dev = qa.device
-    from_active = qa[..., torch.as_tensor(np.maximum(slots, 0), device=dev)]
-    from_seed = data["seed_full"][..., torch.as_tensor(vidx, device=dev)]
-    return torch.where(torch.as_tensor(slots >= 0, device=dev), from_active,
+    from_active = qa[..., grp.index("slot", dev)]
+    from_seed = data["seed_full"][..., grp.index("vidx", dev)]
+    return torch.where(grp.index("active", dev), from_active,
                        from_seed.to(from_active.dtype))
 
 
 def _eval_jv(problem, grp, gdata, tips, qa, data):
-    vals = _gather_goal_vars(problem, grp.static["slots"], grp.static["vidx"],
-                             qa, data)
+    vals = _gather_goal_vars(problem, grp, qa, data)
     d = vals - gdata["target"]
     return d * d
 

@@ -1,12 +1,20 @@
-"""Shared per-problem machinery.
+"""Shared per-problem machinery and the solver registry.
 
-Port of :class:`bio_ik_tpu.solvers.base.SolverContext` (reference:
-src/ik_base.h:128-214): FK, the tip-frame linearizer and the Jacobian
-(``kinematics/approx.py``).  The solver registry arrives with the unfused
-solvers (ROADMAP.md, port queue item 5).
+Port of :mod:`bio_ik_tpu.solvers.base` (reference: src/ik_base.h:128-214
+and IKFactory, utils.h:398-444).  A solver is an ``init / step /
+solution / inject`` set over a state tuple whose tensors carry a leading
+row axis — one row per island of each scenario — which the island path of
+:mod:`bio_ik_tpu_torch.api` steps in lock-step.
+
+The port registers the bio2 family (``solvers/bio2.py``).  The other modes
+the JAX package registers raise ``NotImplementedError`` naming the
+ROADMAP.md port queue item that ports them; any other name raises
+``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -15,7 +23,8 @@ from ..kinematics import make_fk, make_jacobian, make_linearizer
 from ..math.frame import Frame
 from ..problem import Problem
 
-__all__ = ["SolverContext"]
+__all__ = ["SolverContext", "Solver", "register_solver", "make_solver",
+           "solver_names"]
 
 
 class SolverContext:
@@ -61,6 +70,11 @@ class SolverContext:
         tips = self.tips_packed(data["seed_full"], qa)
         return self.problem.fitness(tips, qa, data)
 
+    def fitness_combined_exact(self, qa, data):
+        """Primary + secondary fitness via exact FK."""
+        tips = self.tips_packed(data["seed_full"], qa)
+        return self.problem.fitness_combined(tips, qa, data)
+
     def random_config(self, generator: torch.Generator, shape=()):
         """Uniform sample in the [min, max] box (reference: random(min,max)
         init, e.g. ik_evolution_2.cpp:628-629)."""
@@ -71,3 +85,85 @@ class SolverContext:
 
     def clip(self, qa):
         return torch.clamp(qa, self.problem.aclip_min, self.problem.aclip_max)
+
+
+class Solver:
+    """Protocol of the solvers the island path steps.  Every state tensor
+    and every data leaf carries a leading row axis (one row per island of
+    each scenario); rows never interact.  Subclasses set
+    ``default_islands`` (reference: concurrency(), ik_base.h:208)."""
+
+    default_islands = 1
+
+    def __init__(self, ctx: SolverContext, config):
+        self.ctx = ctx
+        self.config = config
+
+    def init(self, generator: torch.Generator, data):
+        raise NotImplementedError
+
+    def step(self, state, data):
+        raise NotImplementedError
+
+    def solution(self, state, data):
+        """→ ``(qa (R, V), primary fitness (R,))`` of each row's incumbent."""
+        raise NotImplementedError
+
+    def inject(self, state, qa, fitness):
+        """Elite migration hook: absorb a migrant ``(qa (R, V), fitness
+        (R,))`` into each row.  Default: no-op (no reference analog — the
+        reference's islands exchange nothing, ik_parallel.h:94-97)."""
+        return state
+
+
+_REGISTRY: Dict[str, Callable[[SolverContext, object], Solver]] = {}
+
+
+def _pending_modes() -> Dict[str, str]:
+    """The JAX package's other modes (bio_ik_tpu/solvers/*.py), each with
+    the ROADMAP.md port queue item that ports it."""
+    out = {"bio1": "5b", "test": "5b"}
+    for n in ("", "_2", "_4", "_8"):
+        for stuck in ("", "_r", "_c"):
+            out[f"gd{stuck}{n}"] = "5b"
+        out[f"jac{n}"] = "5b"
+        for variant in ("lbfgs", "bfgs", "lbfgsb", "gd", "cgd", "nd", "nm"):
+            for r in ("", "_r"):
+                out[f"optlib_{variant}{r}{n}"] = "5c"
+    out.update({"neural": "5c", "neural2": "5c",
+                # its memetic phase is L-BFGS on optax in the JAX package
+                "bio2_memetic_lbfgs": "5c"})
+    return out
+
+
+_PENDING = _pending_modes()
+
+
+def register_solver(name: str):
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def make_solver(mode: str, ctx: SolverContext, config) -> Solver:
+    """Instantiate a solver by mode name (reference: IKFactory::create,
+    utils.h:398-444)."""
+    _import_all()
+    if mode in _REGISTRY:
+        return _REGISTRY[mode](ctx, config)
+    if mode in _PENDING:
+        raise NotImplementedError(
+            f"solver mode {mode!r} is not ported yet (ROADMAP.md, port queue "
+            f"item {_PENDING[mode]})")
+    raise ValueError(f"unknown solver mode {mode!r}; available: {sorted(_REGISTRY)}")
+
+
+def _import_all():
+    from . import bio2 as _bio2  # noqa: F401
+
+
+def solver_names():
+    _import_all()
+    return sorted(_REGISTRY)

@@ -7,10 +7,11 @@
 Drives ``bio_ik_tpu_torch`` (never JAX) through its paths — the fullstep
 tier (bench.py's configuration, the reference's recommended regularized
 one, the JAX suite's two PR2 dual-arm rows on the wide megastep instance
-and its snake-32 and humanoid rows on the high-DOF instances), the
-species tier (floating and planar chains, with and without the
-regularizers) and the FP32 peak calibration — and holds each hand-written
-CUDA kernel against its plain torch version.  Phases, each
+and its snake-32 and humanoid rows on the high-DOF instances, latency mode
+and the island path of the single-query entry points), the species tier
+(floating and planar chains, with and without the regularizers) and the
+FP32 peak calibration — and holds each hand-written CUDA kernel against
+its plain torch version.  Phases, each
 printing one JSON line and its seconds; any failure raises and exits
 non-zero:
 
@@ -50,6 +51,12 @@ non-zero:
                     negated, the tips swapped); the high-DOF instances
                     with all four terms (snake) and the regularizers
                     (humanoid);
+  latency_check   — the narrow megastep at latency mode's launches (one
+                    query: 8 lanes, and 64 at 32 islands; the group size
+                    the wrapper picks) vs its plain version in Philox mode,
+                    pooled over 4 096 lanes of launches with distinct salts,
+                    against its CPU-vs-card floor; every launch bitwise equal
+                    to G = 1; its time at those shapes beside its bounds;
   fullstep_check  — the fullstep kernel vs make_fullstep_inner at 131 072
                     lanes in both RNG modes (≥ 85 %), its time and bound;
                     the wide fullstep once per non-pose goal kind beside a
@@ -82,6 +89,20 @@ non-zero:
                     share, and humanoid_whole_body_mm (1 mm, six phases,
                     :188-197) at B = 4 096: the main fields; then the 1 cm
                     problem with the regularizers at B = 4 096;
+  latency         — latency mode and the single-query entry points through
+                    tools/bench_latency (PR2, PoseGoal at 1 mm, 200 targets):
+                    IKSolver.solve_until at steps_per_check 4, 8, 16, 32
+                    (success ≥ 0.995, one megastep launch per chunk),
+                    solve_batch at B = 1, the 1 / 5 / 20 ms wall-clock
+                    deadlines and their device-step budgets at 32 islands
+                    (≥ 0.99 at 20 ms), the island path's success on 50
+                    targets at 64 steps (within 0.1 of the JAX package's)
+                    and IKSolver.solve's time on 8, solve / search /
+                    solve_until of each bio2
+                    mode and with elite_migration, the other modes raising
+                    with their item, a query's prep / kernel / glue split, the
+                    prep's synchronizing copies and none inside a chunk,
+                    the device's idle share;
   regularized_main — PoseGoal + MinimalDisplacementGoal(0.05) +
                     AvoidJointLimitsGoal(0.05) on bench_suite's ladder at
                     B = 65 536: the same fields, the median secondary fitness
@@ -224,6 +245,25 @@ MM_QUEUE = 1
 B_HIGH_SEC = 4096
 # lanes of the high-DOF instances' exact FK and fitness checks
 N_HIGH_FK = 131072
+# latency mode (IKSolver.solve_until on the megastep, one query a call):
+# the lanes of one launch — 1 query × 4 islands × 2 species, and × 32
+# islands (bench_latency.run_deadline_device) —, the lanes pooled over
+# launches with distinct salts for the agreement, the lanes of its floor,
+# and the launch shapes (lanes, steps_per_check) the latency paths give it
+LAT_LANES = (8, 64)
+LAT_POOL = 4096
+LAT_FLOOR_LANES = 512
+LAT_SHAPES = ((8, 4), (8, 8), (8, 16), (8, 32), (64, 8))
+# bench_latency's queries; the island path's success on the first 50 of
+# them at max_steps 64 (one solve_batch with fused="off": 50 IKSolver.solve
+# calls take 2.7–4.4 s each on the card's host, ~200 s), and IKSolver.solve
+# itself timed on the first 8
+LAT_N = 200
+LAT_ISLAND_N, LAT_ISLAND_STEPS, LAT_ISLAND_TIMED = 50, 64, 8
+# the JAX package's island path on those 50 targets at that budget: 50 of
+# 50 on a CPU (tests/test_torch_latency.py::test_island_solve_matches_jax_
+# on_bench_latency_targets, which prints it); the port's must be within 0.1
+JAX_ISLAND_SUCCESS = 1.0
 
 
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1157,6 +1197,204 @@ class Smoke:
             raise AssertionError("IKSolver.for_tips built another problem")
 
     # -------------------------------------------------------------- 5 --
+    # ------------------------------------------------------------- 5b --
+    @staticmethod
+    def _single_query_modes(m, tg):
+        """``solve``, ``search`` and ``solve_until`` of each bio2 mode on the
+        card (8 steps, the first target), ``elite_migration`` on the island
+        path, and the JAX registry's other modes raising with their item."""
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import IKSolver, SolverConfig
+        from bio_ik_tpu_torch.tools import bench_latency as bl
+
+        seed = m.neutral_q()
+        rows = {}
+        for mode, migrate in (("bio2", False), ("bio2_memetic", False),
+                              ("bio2_memetic_l", False), ("bio2_memetic", True)):
+            s = IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(
+                mode=mode, dtwist=1e-3, max_steps=8, steps_per_check=4,
+                elite_migration=migrate))
+            d = bl._query(s.make_data(seed), tg, 0)
+            res = [s.solve(seed, key=[0, 5], data=d),
+                   s.search(seed, key=[0, 5], data=d, return_approximate_solution=True),
+                   s.solve_until(seed, key=[0, 5], data=d)]
+            rows[mode + ("+elite_migration" if migrate else "")] = {
+                "engine": s.engine is not None,
+                "success": [bool(r.success) for r in res],
+                "finite": all(bool(torch.isfinite(r.q).all()) for r in res)}
+        for mode in ("bio1", "gd_4", "jac", "test", "optlib_lbfgs", "neural",
+                     "bio2_memetic_lbfgs"):
+            try:
+                IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode=mode))
+                rows[mode] = "built"
+            except NotImplementedError as e:
+                rows[mode] = str(e)
+        bad = {k: v for k, v in rows.items()
+               if (isinstance(v, dict) and not v["finite"])
+               or (isinstance(v, str) and not re.search(r"item 5[bc]\)", v))}
+        if bad:
+            raise AssertionError(f"single-query entry points: {bad}")
+        return rows
+
+    def latency_check(self):
+        """The narrow megastep at latency mode's launch shapes (one query:
+        LAT_LANES lanes a launch, the group size the wrapper chooses) against
+        its plain version in Philox mode, pooled over LAT_POOL lanes of
+        repeated launches, each with its own salt as each query has (the
+        plain version run on the pooled lanes with each column's lane index
+        of its launch): agreement against min(0.85, floor − 0.03), the floor
+        being the plain version on the CPU against the card on the first
+        LAT_FLOOR_LANES lanes; every launch bitwise equal to G = 1.  Then
+        the kernel's time at each of LAT_SHAPES beside its bounds, and the
+        plain version's at the first."""
+        import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import philox_draw
+
+        mega, sp = self._mega(2)
+        cpu_mega, _ = self._mega(2, model=self.cpu_model)
+        seed = 0x2468ACE
+        rows = []
+        for M in LAT_LANES:
+            state, consts, _ = self._inputs(sp, 2, LAT_POOL, with_noise=False, seed=13)
+            gen = torch.Generator(self.dev).manual_seed(M)
+            L = LAT_POOL // M
+            salt = torch.randint(-2**31, 2**31 - 1, (L,), dtype=torch.int32, device=self.dev,
+                                 generator=gen).repeat_interleave(M)[None].contiguous()
+            lane = (torch.arange(LAT_POOL, device=self.dev) % M)[None]
+            outs, bitwise = [], []
+            for j in range(L):
+                cols = slice(j * M, (j + 1) * M)
+                st, cs = (tuple(t[:, cols].contiguous() for t in x) for x in (state, consts))
+                sj = salt[:, cols].contiguous()
+                k = mega(st, cs, seed=seed, salt=sj)
+                k1 = mega(st, cs, seed=seed, salt=sj, group=1)
+                bitwise.append(all(torch.equal(a, b) for a, b in zip(k, k1)))
+                outs.append(k)
+            k_out = tuple(torch.cat([o[i] for o in outs], 1) for i in range(len(outs[0])))
+            p_out = mega.body(state, consts, philox_draw(seed, salt, sp.V, sp.C, lane=lane))
+            n = LAT_FLOOR_LANES
+            cut = lambda xs: tuple(x[:, :n].cpu() for x in xs)  # noqa: E731
+            c_out = cpu_mega.body(cut(state), cut(consts),
+                                  philox_draw(seed, salt[:, :n].cpu(), sp.V, sp.C,
+                                              lane=lane[:, :n].cpu()))
+            torch.cuda.synchronize()
+            row = {"lanes_per_launch": M, "launches": L, "pooled_lanes": LAT_POOL,
+                   "group_chosen": mega.group(mega._lib(M), self.dev, M),
+                   "agree_frac": agree_frac(k_out, p_out),
+                   "plain_cpu_vs_card_agree_frac": agree_frac(c_out, cut(p_out)),
+                   "bitwise_vs_g1_frac": sum(bitwise) / L}
+            row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
+            rows.append(row)
+        times = self._mega_rows(LAT_SHAPES)
+        N, steps = LAT_SHAPES[0]
+        pm, psp = self._mega(steps)
+        state, consts, _ = self._inputs(psp, steps, N, with_noise=False)
+        salt = torch.zeros((1, N), dtype=torch.int32, device=self.dev)
+        plain_ms = cuda_ms(lambda: pm.body(state, consts, philox_draw(99, salt, psp.V, psp.C)), 1)
+        emit({"phase": "latency_check", "agreement": rows, "megastep": times,
+              "plain_ms_at_first_shape": plain_ms, "gpu": smi_line()})
+        self.kernels["megastep"].update(
+            latency_agree_frac=min(r["agree_frac"] for r in rows),
+            latency_group=[r["group_chosen"] for r in rows],
+            latency_ms={f"{r['lanes']}x{r['n_steps']}": r["ms"] for r in times},
+            latency_bound_ms={f"{r['lanes']}x{r['n_steps']}": r["bound_ms"] for r in times},
+            latency_plain_ms=plain_ms)
+        for r in rows:
+            if r["agree_frac"] < r["agree_limit"]:
+                raise AssertionError(f"the megastep at {r['lanes_per_launch']} lanes agrees "
+                                     f"with its plain version below its limit: {r}")
+            if r["bitwise_vs_g1_frac"] < 1.0:
+                raise AssertionError(f"a group size changes the result: {r}")
+
+    def latency(self):
+        """Latency mode and the single-query entry points on the card through
+        ``bio_ik_tpu_torch.tools.bench_latency`` (PR2, PoseGoal, dtwist 1e-3,
+        LAT_N targets): ``IKSolver.solve_until`` at each (steps_per_check,
+        64) — success ≥ 0.995 and one megastep launch per chunk run —;
+        ``solve_batch`` at B = 1; the wall-clock deadlines; the device-step
+        budgets of the deadlines at islands = 32 (the 20 ms row's success ≥
+        0.99); the island path's success on the first LAT_ISLAND_N targets
+        (within 0.1 of the JAX package's ``solve``) and ``IKSolver.solve``'s
+        time per query on the first LAT_ISLAND_TIMED; a query split into
+        prep, kernel and glue, with the synchronizing host copies of its prep
+        counted and none allowed in a chunk (``torch.cuda`` sync debug mode);
+        the device's idle share over one query of each path.  Launch counts
+        from 0 just before each path, read just after."""
+        import warnings
+
+        import torch
+        from bio_ik_tpu_torch.interop import tree_map
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
+        from bio_ik_tpu_torch.tools import bench_latency as bl
+
+        m, _, tg = bl.setup("cuda", n=LAT_N)
+        out = {"phase": "latency", "gpu": smi_line(), "n": LAT_N}
+        Megastep.launches = 0
+        out["solve_until"] = [bl.run_setting(m, tg, spc, ms) for spc, ms in bl.SETTINGS]
+        out["solve_until_launches"] = launches = Megastep.launches
+        out["fused_single_dispatch"] = bl.run_fused_single(m, tg)
+        out["deadline_wall"] = [bl.run_deadline(m, tg, t) for t in bl.DEADLINES_S]
+        out["deadline_device"] = bl.run_deadline_device(m, tg)
+        out["breakdown"] = bl.run_breakdown(m, tg, n=50)
+        # the prep's synchronizing copies, and none inside a chunk
+        s = bl._solver(m, max_steps=64, steps_per_check=4)
+        key = torch.tensor([0, 1], device=self.dev)
+        q1 = bl._query(s.make_data(m.neutral_q()), tg, 1)
+        s.solve_until(m.neutral_q(), key=key, data=q1)          # warm-up
+        d = tree_map(lambda x: x[None], q1)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, consts, salt, best = s.engine._mega_prep(key[None], d)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out["prep_synchronizing_ops"] = sum("synchroniz" in str(w.message) for w in caught)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for c in range(4):
+                state, best = s.engine._mega_chunk(c, salt, state, consts, best, d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out["chunk_synchronizing_ops"] = 0
+        out["modes"] = self._single_query_modes(m, tg)
+        Megastep.launches = 0
+        out["island_solve"] = bl.run_island(m, tg, n=LAT_ISLAND_TIMED,
+                                            max_steps=LAT_ISLAND_STEPS)
+        out["island_batch"] = bl.run_island_batch(m, tg, n=LAT_ISLAND_N,
+                                                  max_steps=LAT_ISLAND_STEPS)
+        out["island_megastep_launches"] = Megastep.launches
+        out["jax_island_success_rate_cpu"] = JAX_ISLAND_SUCCESS
+        # the device's idle share over one query: solve_until, and the
+        # island path at 4 steps (its share per step; a 64-step query takes
+        # seconds)
+        data1 = bl._query(s.make_data(m.neutral_q()), tg, 3)
+        si = bl._solver(m, max_steps=4)
+        out["profile_solve_until"] = self._profile_call(
+            lambda: s.solve_until(m.neutral_q(), key=key, data=data1))
+        out["profile_island_solve_4_steps"] = self._profile_call(
+            lambda: si.solve(m.neutral_q(), key=key, data=data1))
+        for k in ("profile_solve_until", "profile_island_solve_4_steps"):
+            out[k].pop("top")
+        emit(out)
+        self.kernels["megastep"]["latency_launches"] = launches
+        bad = [r for r in out["solve_until"] if r["success_rate"] < 0.995
+               or r["megastep_launches_per_query"] != r["chunks_per_query"]]
+        if bad or launches == 0:
+            raise AssertionError(f"solve_until below 0.995, or not one megastep launch "
+                                 f"per chunk: {bad}, {launches} launches")
+        if out["deadline_device"][-1]["success_at_deadline"] < 0.99:
+            raise AssertionError(f"the 20 ms device budget solves below 0.99: "
+                                 f"{out['deadline_device']}")
+        if out["island_megastep_launches"]:
+            raise AssertionError("the island path launched the megastep")
+        isl = out["island_batch"]["success_rate"]
+        if abs(isl - JAX_ISLAND_SUCCESS) > 0.1:
+            raise AssertionError(f"the island path's success {isl} is not within 0.1 of "
+                                 f"the JAX package's {JAX_ISLAND_SUCCESS}")
+
     def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None,
                       sec_terms=(), philox=False):
         """A SpeciesKernel of the robot's species path and one step's
@@ -1403,18 +1641,23 @@ class Smoke:
     # -------------------------------------------------------------- 8 --
     @staticmethod
     def _profile(s, data, keys):
-        """torch.profiler over one warm solve_batch: device time by kernel
+        """torch.profiler over one warm solve_batch (:meth:`_profile_call`)."""
+        return Smoke._profile_call(lambda: s.solve_batch(keys, data))
+
+    @staticmethod
+    def _profile_call(fn):
+        """torch.profiler over one warm call of ``fn``: device time by kernel
         name and the device's busy share of the host-clock wall time."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        s.solve_batch(keys, data)
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            s.solve_batch(keys, data)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -2231,9 +2474,9 @@ class Smoke:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
-                    "main,regularized_main,dual_main,multigoal_main,snake_main,"
-                    "humanoid_main,species_check,species_main,species_sec_main,times,"
-                    "profile,mfu",
+                    "latency_check,main,regularized_main,dual_main,multigoal_main,"
+                    "snake_main,humanoid_main,latency,species_check,species_main,"
+                    "species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
