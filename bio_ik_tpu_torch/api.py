@@ -60,6 +60,20 @@ def _check_device(model: RobotModel, device):
                          f"{model.device}; build the RobotModel on it")
 
 
+def _build_engines(solvers) -> float:
+    """Build the CUDA instances of the solvers' fused engines on a card,
+    all at once; returns the seconds spent (0 when there is nothing to
+    build)."""
+    from .kernels.build import build_all
+
+    names = []
+    for s in solvers:
+        eng = s.engine
+        if eng is not None and s.device.type == "cuda":
+            names.append((eng.mega if eng.fullstep else eng.kernel).source)
+    return build_all(sorted(set(names))) if names else 0.0
+
+
 class IKSolver:
     """Solver for one robot + goal structure (reference: the plugin's
     ``initialize``, kinematics_plugin.cpp:191-335).  Runs on the model's
@@ -96,9 +110,10 @@ class IKSolver:
         # package records with ``counter``)
         self.last_steps = 0
         self.engine = None
-        # why there is no engine; ``kernel_gap`` when only the card lacks a
-        # CUDA instance for the problem — then solve_batch raises rather
-        # than leave the kernel's work to the island path
+        # why there is no engine; ``kernel_gap`` when only the card cannot
+        # hold the problem's CUDA instance (its block exceeds the shared
+        # memory at every group size) — then solve_batch raises rather than
+        # leave the kernel's work to the island path
         self.unsupported, self.kernel_gap = None, False
         if config.fused == "off" or config.elite_migration:
             self.unsupported = ("fused='off'" if config.fused == "off"
@@ -219,14 +234,25 @@ class IKSolver:
             state, best = self._chunk(state, best, data, data_r)
         return self._result(best, data)
 
+    def warmup(self) -> float:
+        """Build the CUDA kernel instance the fused engine launches, if it is
+        not built yet: on a shape no prebuilt source holds that is one
+        ``nvcc`` (tens of seconds, once per shape; the library is kept under
+        ``build/kernels``), which the first :meth:`solve_batch` would pay
+        otherwise.  Nothing to build on the CPU or without a fused engine.
+        Returns the seconds spent."""
+        return _build_engines([self])
+
     # ------------------------------------------------------------------
     def solve_batch(self, keys, data) -> IKResult:
         """Solve B queries at once.  Every leaf of ``data`` carries a
         leading batch axis; ``keys`` is a ``(B, 2)`` integer tensor of
         32-bit words (a raw JAX ``PRNGKey`` per scenario).  The fused engine
         runs it; where the fused kernels cannot express the problem, the
-        island path does, as in the JAX package; where only the card lacks
-        the problem's kernel instance, this raises."""
+        island path does, as in the JAX package; where only the card cannot
+        hold the problem's kernel instance, this raises.  The first call on
+        a shape no prebuilt source holds builds its instance
+        (:meth:`warmup` builds it ahead)."""
         if self.engine is not None:
             return self.engine.solve_batch(keys, data)
         if self.kernel_gap:
@@ -269,7 +295,7 @@ class IKSolver:
         (:meth:`FusedBio2Engine.solve_until`); otherwise the island path
         runs it — a floating or planar chain, or a problem the fused
         kernels cannot express.  A fullstep chain whose kernel instance the
-        card lacks raises.  ``last_steps`` holds the steps run."""
+        card cannot hold raises.  ``last_steps`` holds the steps run."""
         key = self._key(key)
         if data is None:
             data = self.make_data(q_seed)
@@ -327,6 +353,11 @@ class AdaptiveBatchSolver:
     @property
     def problem(self):
         return self.solvers[0].problem
+
+    def warmup(self) -> float:
+        """:meth:`IKSolver.warmup` for every phase's solver (one build for
+        all: the phases share the instance's shape)."""
+        return _build_engines(self.solvers)
 
     def make_data(self, q_seed_full):
         return self.solvers[0].make_data(q_seed_full)

@@ -7,8 +7,10 @@
 // few variables, the lane's linearization in registers), and
 // csrc/megastep_wide.cu and csrc/megastep_high.cu (MEGASTEP_WIDE 1: many
 // variables and tips, every goal kind of the step; the PR2 dual arm, and
-// snake-32 and the 30-DOF humanoid).  Each source defines SHAPES(X) and
-// GROUPS(X, v, k, t) before including this header.
+// snake-32 and the 30-DOF humanoid) — and by the source that
+// kernels/bio2_megastep.py::megastep_instance generates, with
+// MEGASTEP_WIDE 1, for any other shape on its first use.  Each source
+// defines SHAPES(X) and GROUPS(X, v, k, t) before including this header.
 //
 // Replaces the TPU kernel bio_ik_tpu/kernels/bio2_megastep.py::
 // make_megastep_kernel (its pl.pallas_call), which inlines
@@ -1323,7 +1325,7 @@ fullstep_kernel(const Params P) {
 
 // ------------------------------------------------------------ C API ----
 // Over the including source's (V, K, T) instances (SHAPES; kernels/
-// bio2_megastep.py::MEGASTEP_SOURCES lists the same): pose-only and
+// bio2_megastep.py::MEGASTEP_SOURCES lists the prebuilt ones): pose-only and
 // secondary-goal (SEC) megasteps for every group size G of GROUPS and a
 // fullstep kernel each.
 
@@ -1332,13 +1334,6 @@ fullstep_kernel(const Params P) {
 // first.  1 was the list before this symbol: no G, no nbranch, 6-int link
 // rows; 2 had no gaux, inst_kind, cols, ncol.
 extern "C" int megastep_abi_version() { return 3; }
-
-extern "C" int megastep_has_shape(int V, int K, int T) {
-#define HAS(v, k, t) if (V == v && K == k && T == t) return 1;
-  SHAPES(HAS)
-#undef HAS
-  return 0;
-}
 
 // Dynamic shared memory of one block, bytes (ncol: the linearization's
 // columns of a wide instance, else 0).

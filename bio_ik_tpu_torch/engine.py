@@ -27,9 +27,10 @@ memetic line search).  :meth:`FusedBio2Engine.solve_until` is latency mode
 on the fullstep tier: one query, one megastep launch per acceptance chunk,
 early exit on the host.  A problem the fused kernels cannot express at all
 (:meth:`FusedBio2Engine.shared_reason`, as in the JAX engine) runs on the
-island path of ``api.py``; on a card, a problem whose kernel shape no CUDA
-source instantiates, or whose goal kinds its instance does not evaluate,
-is rejected (:meth:`FusedBio2Engine.card_reason`, item 9).
+island path of ``api.py``.  On a card every shape runs on a CUDA instance:
+a prebuilt one, or one generated for the shape and built on its first use;
+only a block that does not fit in the card's shared memory is rejected
+(:meth:`FusedBio2Engine.card_reason`).
 
 Randomness.  Per-scenario keys are ``(B, 2)`` integer tensors of 32-bit
 words (the layout of a raw JAX ``PRNGKey``).  :func:`_scenario_salt` equals
@@ -62,9 +63,8 @@ import torch
 
 from .interop import tree_map
 from .kernels.bio2_fullstep import AUX_KINDS, LINK_KINDS, POSE_KINDS
-from .kernels.bio2_megastep import MEGASTEP_SOURCES, Megastep, philox_wipe
-from .kernels.bio2_step import (SPECIES_SHAPES, SpeciesKernel, SpeciesParams, _P,
-                                quat_mask)
+from .kernels.bio2_megastep import Megastep, philox_wipe
+from .kernels.bio2_step import SpeciesKernel, SpeciesParams, _P
 from .kernels.fk_rows import FkRows, supports_fullstep_chain
 from .math.frame import Frame
 from .solvers.bio2 import quat_gene_slices
@@ -185,6 +185,35 @@ def winner(problem, qa, fit, tips, data):
     return qa[bi, i], fit[bi, i], ok[bi, i], rank[bi, i]
 
 
+def _fused_kernel(iksolver):
+    """What the fused engine launches for a problem that ``shared_reason``
+    passes: ``(ginst, sp, sec_terms, kernel)`` — the goal-instance table
+    (group, instance, tip slot, kind), the kernel parameters, the secondary
+    terms and the wrapper: a :class:`Megastep` on a fullstep chain, else a
+    :class:`SpeciesKernel`.  Its CUDA instance (``kernel.source``) resolves
+    on first use."""
+    p, cfg = iksolver.problem, iksolver.config
+    memetic = _MEMETIC_OF_MODE[cfg.mode]
+    # goal-instance table: one kernel row group per primary instance
+    ginst = [(gi, k, int(grp.tip_slots[k]), grp.kind)
+             for gi, grp in enumerate(p.primary) for k in range(grp.count)]
+    model = p.model
+    # floating-joint quaternion genes are renormalized in the species
+    # kernel; a fullstep chain has none
+    sp = SpeciesParams(V=iksolver.ctx.nvars, K=len(ginst), C=_C,
+                       gens=8 if memetic else 16, mem_iters=8, memetic=memetic,
+                       quat_slices=tuple(quat_gene_slices(model, p.active_vars)))
+    # joint-space secondary goals run in the kernels (pre-selection and
+    # combined memetic, reference: ik_evolution_2.cpp:366-378, :459-537)
+    sec_terms = tuple(sorted({_SEC_TERM_OF[grp.kind] for grp in p.secondary}))
+    if not supports_fullstep_chain(model, [model.link_index[t] for t in p.tip_links]):
+        return ginst, sp, sec_terms, SpeciesKernel(sp, sec_terms)
+    spc = max(1, min(cfg.steps_per_check, cfg.max_steps))
+    return ginst, sp, sec_terms, Megastep(
+        model, p.tip_links, p.active_vars, [g[2] for g in ginst], sp, n_steps=spc,
+        gauss_mode=cfg.gauss_mode, sec_terms=sec_terms, inst_kind=[g[3] for g in ginst])
+
+
 class FusedBio2Engine:
     """Batched bio2 solve with a fused kernel in the hot loop."""
 
@@ -198,40 +227,17 @@ class FusedBio2Engine:
         self.config = cfg = iksolver.config
         self.islands = iksolver.islands
         self.device = p.device
-
-        memetic = _MEMETIC_OF_MODE[cfg.mode]
-        gens = 8 if memetic else 16
-        # goal-instance table: one kernel row group per primary instance
-        self.ginst = []  # (group_idx, instance, tip_slot, kind)
-        for gi, grp in enumerate(p.primary):
-            for k in range(grp.count):
-                self.ginst.append((gi, k, int(grp.tip_slots[k]), grp.kind))
-        K = len(self.ginst)
+        self.ginst, self.sp, self.sec_terms, kernel = _fused_kernel(iksolver)
         self.inst_kind = [g[3] for g in self.ginst]
         self.has_aux = any(k in AUX_KINDS for k in self.inst_kind)
-        model = p.model
-        self.fullstep = supports_fullstep_chain(
-            model, [model.link_index[t] for t in p.tip_links])
-        # floating-joint quaternion genes are renormalized in the species
-        # kernel; a fullstep chain has none
-        self.sp = SpeciesParams(
-            V=self.ctx.nvars, K=K, C=_C, gens=gens, mem_iters=8,
-            memetic=memetic,
-            quat_slices=tuple(quat_gene_slices(model, p.active_vars)))
-        # joint-space secondary goals run in the kernels (pre-selection and
-        # combined memetic, reference: ik_evolution_2.cpp:366-378, :459-537)
-        self.sec_terms = tuple(sorted({_SEC_TERM_OF[grp.kind]
-                                       for grp in p.secondary}))
+        self.fullstep = isinstance(kernel, Megastep)
         self.spc = max(1, min(cfg.steps_per_check, cfg.max_steps))
         self.nchecks = max(1, cfg.max_steps // self.spc)
         if self.fullstep:
-            self.mega = Megastep(
-                model, p.tip_links, p.active_vars, [g[2] for g in self.ginst],
-                self.sp, n_steps=self.spc, gauss_mode=cfg.gauss_mode,
-                sec_terms=self.sec_terms, inst_kind=self.inst_kind)
-            self.fixed_vars = FkRows(model, p.tip_links, p.active_vars).fixed_vars
+            self.mega = kernel
+            self.fixed_vars = FkRows(p.model, p.tip_links, p.active_vars).fixed_vars
         else:
-            self.kernel = SpeciesKernel(self.sp, self.sec_terms)
+            self.kernel = kernel
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -275,34 +281,19 @@ class FusedBio2Engine:
 
     @staticmethod
     def card_reason(iksolver) -> Optional[str]:
-        """On a card, why no CUDA instance runs the problem (a gap of the
-        port that the JAX package's traced kernels do not have), or None."""
-        p = iksolver.problem
-        if p.device.type != "cuda":
+        """On a card, why no CUDA instance can run the problem, or None.
+        Every shape the JAX engine fuses has one — prebuilt, or generated
+        and built on first use (``bio2_megastep.megastep_instance``,
+        ``bio2_step.species_instance``) —, so the reason is a block that
+        does not fit in the card's shared memory at any group size, in
+        bytes.  The instance is the one the engine's kernel launches
+        (:func:`_fused_kernel`)."""
+        if iksolver.problem.device.type != "cuda":
             return None
-        model = p.model
-        fullstep = supports_fullstep_chain(
-            model, [model.link_index[t] for t in p.tip_links])
-        V = len(p.active_vars)
-        K = sum(grp.count for grp in p.primary)
-        shape = (V, K, p.ntips)
-        if fullstep and not any(shape in x for x in MEGASTEP_SOURCES.values()):
-            have = ", ".join(f"csrc/{src}.cu {list(shapes)}"
-                             for src, shapes in MEGASTEP_SOURCES.items())
-            return (f"the megastep kernel is not instantiated for "
-                    f"(V, K, T) = {shape} ({have}; ROADMAP.md, port queue item 9)")
-        if fullstep and shape in MEGASTEP_SOURCES["megastep"] and any(
-                grp.kind not in POSE_KINDS for grp in p.primary):
-            return (f"the (V, K, T) = {shape} megastep instance evaluates the "
-                    "pose family only (csrc/megastep.cu; the other kinds run "
-                    "on the csrc/megastep_wide.cu and csrc/megastep_high.cu "
-                    "instances; ROADMAP.md, port queue item 9)")
-        qmask = quat_mask(quat_gene_slices(model, p.active_vars))
-        if not fullstep and (V, K, qmask) not in SPECIES_SHAPES:
-            return (f"the species kernel is not instantiated for (V, K) = "
-                    f"{(V, K)} with quaternion mask {qmask} (csrc/species.cu "
-                    f"has (V, K, mask) {list(SPECIES_SHAPES)}; ROADMAP.md, port "
-                    "queue item 9)")
+        try:
+            _fused_kernel(iksolver)[-1].source
+        except ValueError as e:
+            return str(e)
         return None
 
     # ------------------------------------------------------------------

@@ -38,7 +38,11 @@ whose lane linearization lives in registers, and ``csrc/megastep_wide.cu``
 (the PR2 dual arm) and ``csrc/megastep_high.cu`` (snake-32, the 30-DOF
 humanoid) the instances of many variables and tips, whose linearization
 lives in shared memory by dependency column and which evaluate every goal
-kind (:data:`MEGASTEP_SOURCES`).
+kind (:data:`MEGASTEP_SOURCES`).  Any other (V, K, T), and a narrow shape
+with a goal kind outside the pose family, gets an instance of the wide
+layout generated and built on its first use (:func:`megastep_instance`,
+``kernels/build.generate``): one ``nvcc`` per shape, cached under
+``build/kernels``.
 
 :class:`Fullstep` wraps the same step without the bookkeeping (the TPU
 kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
@@ -48,6 +52,7 @@ kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,13 +71,14 @@ from .bio2_fullstep import (
     rates_from_words,
     u01_from_bits,
 )
-from .bio2_step import SpeciesParams, _P, sec_term_mask
+from .bio2_step import SMEM_OPTIN, SpeciesParams, _P, sec_term_mask
 from .fk_rows import FkRows
 
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "philox_wipe",
            "Megastep", "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
            "philox_calls_per_lane_step", "clt4_calls", "choose_group",
-           "MEGASTEP_SOURCES", "MEGASTEP_GROUPS", "KIND_CODE", "dependency_columns"]
+           "MEGASTEP_SOURCES", "MEGASTEP_GROUPS", "KIND_CODE", "dependency_columns",
+           "MegastepInstance", "megastep_instance", "megastep_smem_bytes"]
 
 # (V, K, T) instances of each megastep source (its SHAPES macro), each for
 # every group size G of the source's GROUPS macro; the wide and high-DOF
@@ -85,6 +91,13 @@ MEGASTEP_SOURCES = {"megastep": ((7, 1, 1), (6, 1, 1)),
                     "megastep_high": ((32, 1, 1), (30, 3, 3))}
 MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (1, 2, 4),
                    "megastep_high": (2,)}
+# the group sizes a generated instance builds: G = 2 alone from 24
+# variables on (the high-DOF source's rule: at V = 30-32 G = 2 ran faster
+# than G = 4 at every launch shape, and G = 1 holds one block per SM or
+# does not fit with secondary goals), else those of the wide source — G = 4
+# for a ladder's small last launches, at 15–26 s of nvcc for the seven
+# kernels of a (7, 2, 1) instance on an H100's host (PERF.md §6)
+GEN_GROUPS, GEN_GROUPS_HIGH, GEN_HIGH_V = (1, 2, 4), (2,), 24
 # the kernel's code of each goal kind (csrc/megastep.cuh GK_*)
 KIND_CODE = {**dict.fromkeys(POSE_KINDS, 0),
              **{k: i + 1 for i, k in enumerate(LINK_KINDS)}}
@@ -94,6 +107,8 @@ _MAX_C = 16           # children per generation the kernel takes (MAX_C)
 # the memetic search, the bookkeeping): 0.26 from the pose-only kernel's
 # phase-1 times at G = 1 and 2 on an H100 (PERF.md §6)
 _REPEATED = 0.26
+
+_LINK_I, _LINK_F = 7, 19   # ints and floats per link of the table (LINK_I, LINK_F)
 
 _WIPEOUT_P = 0.1  # reference: ik_evolution_2.cpp:632
 _WIPE_GEN = 0xFFFFFFFF  # Philox generation word of a step's wipeout draws
@@ -141,6 +156,86 @@ def choose_group(N: int, resident, C: int = _MAX_C) -> int:
     if best is None:
         raise ValueError(f"no group size fits (resident blocks by G: {resident})")
     return best[1]
+
+
+def megastep_smem_bytes(V: int, nlinks: int, nbranch: int, C: int, G: int,
+                        sec_mask: int, ncol: int = 0, K: int = 0, T: int = 0) -> int:
+    """Dynamic shared memory of one megastep block, bytes: a copy of
+    ``layout()`` in ``csrc/megastep.cuh`` (``ncol`` the wide layout's
+    linearization columns, 0 in the narrow one) — the link table, the
+    branch frames per thread, the lane rows per lane (span, cmin, cmax and,
+    with secondary terms, the 8·V secondary rows), with secondary terms
+    each thread's children's two fitness values, the lanes' linearization
+    columns and the column table."""
+    lanes = _BLOCK // G
+    words = (nlinks * (_LINK_I + _LINK_F) + nbranch * 7 * _BLOCK
+             + (3 + 8 * bool(sec_mask)) * V * lanes
+             + (C // G * 2 * _BLOCK if sec_mask else 0)
+             + ncol * 7 * lanes + (V * (T + K) if ncol else 0))
+    return 4 * words
+
+
+class MegastepInstance(NamedTuple):
+    """The CUDA source that holds a megastep shape: a file of ``csrc/`` or
+    a generated name (``kernels/build.generate``), whether it has the wide
+    layout, and the group sizes it builds."""
+    source: str
+    wide: bool
+    groups: tuple
+    generated: bool
+
+
+def _generated_text(V: int, K: int, T: int, groups) -> str:
+    gx = " ".join(f"X(v, k, t, {g})" for g in groups)
+    return (f"// The wide megastep instance (V, K, T) = ({V}, {K}, {T}) at the group\n"
+            f"// sizes {', '.join(map(str, groups))}, generated by "
+            "bio_ik_tpu_torch/kernels/bio2_megastep.py::\n"
+            "// megastep_instance (the step, the kernels and the C API are\n"
+            "// csrc/megastep.cuh).\n"
+            f"#define SHAPES(X) X({V}, {K}, {T})\n"
+            f"#define GROUPS(X, v, k, t) {gx}\n"
+            "#define MEGASTEP_WIDE 1\n\n"
+            '#include "megastep.cuh"\n')
+
+
+def megastep_instance(V: int, K: int, T: int, kinds, sec_mask: int, chain,
+                      C: int = _MAX_C) -> MegastepInstance:
+    """The instance that runs the megastep on (V, K, T) with the goal
+    ``kinds`` and the secondary terms of ``sec_mask``: the prebuilt source
+    of :data:`MEGASTEP_SOURCES` that has the shape (the narrow ``megastep``
+    source for the pose family only), else an instance of the wide layout
+    generated for the shape, at the group sizes of :data:`GEN_GROUPS`
+    (:data:`GEN_GROUPS_HIGH` from :data:`GEN_HIGH_V` variables) whose block
+    fits.  ``chain`` is ``(nlinks, nbranch, ncol)`` of the problem's link
+    table and dependency columns, which size the block: a generated
+    instance leaves out the group sizes whose block exceeds the card's
+    shared memory (:data:`bio2_step.SMEM_OPTIN`), and a ValueError naming
+    the bytes is raised where no group size of the instance fits."""
+    from .build import generate
+
+    pose_only = set(kinds) <= set(POSE_KINDS)
+    inst = None
+    for src, shapes in MEGASTEP_SOURCES.items():
+        if (V, K, T) in shapes and (src != "megastep" or pose_only):
+            inst = MegastepInstance(src, src != "megastep", MEGASTEP_GROUPS[src], False)
+            break
+    candidates = inst.groups if inst else (GEN_GROUPS_HIGH if V >= GEN_HIGH_V
+                                           else GEN_GROUPS)
+    nlinks, nbranch, ncol = chain
+    ncol = ncol if (inst is None or inst.wide) else 0
+    smem = {g: megastep_smem_bytes(V, nlinks, nbranch, C, g, sec_mask, ncol, K, T)
+            for g in candidates if C % g == 0}
+    fits = tuple(g for g, b in smem.items() if b <= SMEM_OPTIN)
+    if not fits:
+        raise ValueError(
+            f"no group size of the megastep instance (V, K, T) = {(V, K, T)} "
+            f"fits in the card's {SMEM_OPTIN} bytes of shared memory per block: "
+            f"{smem} bytes by group size")
+    if inst is None:
+        name = f"megastep_gen_{V}_{K}_{T}_g{''.join(map(str, fits))}"
+        generate(name, _generated_text(V, K, T, fits), ["--split-compile=0"])
+        inst = MegastepInstance(name, True, fits, True)
+    return inst
 
 
 def fullstep_bytes_per_lane(sp: SpeciesParams, F: int) -> int:
@@ -345,8 +440,9 @@ def _check(t, shape, name, dev, dtype=torch.float32):
 
 class _StepKernel:
     """What :class:`Megastep` and :class:`Fullstep` share: the instance's
-    source (:data:`MEGASTEP_SOURCES`), its chain, goal-kind and column
-    tables on each device, and the shape check."""
+    source (:func:`megastep_instance`, resolved on first use: a prebuilt
+    file of ``csrc/`` or a generated instance), its chain, goal-kind and
+    column tables on each device, and the shape check."""
 
     def __init__(self, model, tip_links, active_vars, inst_tip,
                  sp: SpeciesParams, gauss_mode: str, sec_terms=(), inst_kind=None):
@@ -358,44 +454,52 @@ class _StepKernel:
         self.T = len(tip_links)
         self.inst_kind = tuple(inst_kind or ("pose",) * sp.K)
         self.has_aux = any(k in AUX_KINDS for k in self.inst_kind)
-        # the source of the instance (the pose-family source when neither has it)
-        self.source = next((src for src, shapes in MEGASTEP_SOURCES.items()
-                            if (sp.V, sp.K, self.T) in shapes), "megastep")
         link_i, link_f, tip_slot = FkRows(
             model, tip_links, active_vars).chain_arrays()
         branch = _branch_slots(link_i)
         self.nbranch = int((branch >= 0).sum())
-        cols, self.ncol = dependency_columns(link_i, sp.V, self.T, inst_tip)
-        if self.source == "megastep":
-            self.ncol = 0           # the linearization lives in registers
+        cols, self._wide_ncol = dependency_columns(link_i, sp.V, self.T, inst_tip)
         self._chain = (np.concatenate([link_i, branch[:, None]], 1), link_f,
                        tip_slot, np.asarray(inst_tip, np.int32),
                        np.asarray([KIND_CODE[k] for k in self.inst_kind], np.int32),
                        cols)
-        self.groups = MEGASTEP_GROUPS[self.source]
+        self._instance = None
         self._chain_dev = {}
         self._groups = {}
+
+    @property
+    def instance(self) -> MegastepInstance:
+        """The instance's source (:func:`megastep_instance`); a ValueError
+        naming the bytes where no group size of it fits on the card."""
+        if self._instance is None:
+            self._instance = megastep_instance(
+                self.sp.V, self.sp.K, self.T, self.inst_kind, self.sec_mask,
+                (self._chain[0].shape[0], self.nbranch, self._wide_ncol), self.sp.C)
+        return self._instance
+
+    @property
+    def source(self) -> str:
+        return self.instance.source
+
+    @property
+    def groups(self) -> tuple:
+        return self.instance.groups
+
+    @property
+    def ncol(self) -> int:
+        """The linearization's columns in shared memory (0: the narrow
+        layout keeps it in registers)."""
+        return self._wide_ncol if self.instance.wide else 0
 
     def _lib(self, N):
         from .build import load
 
-        lib = load(self.source)
         sp = self.sp
         if N % 2:
             raise ValueError(f"lane count {N} must be even (species pairs)")
         if sp.C > _MAX_C:
             raise ValueError(f"{sp.C} children exceed the kernel's {_MAX_C}")
-        lib.megastep_has_shape.argtypes = [ctypes.c_int] * 3
-        lib.megastep_has_shape.restype = ctypes.c_int
-        if not lib.megastep_has_shape(sp.V, sp.K, self.T):
-            raise ValueError(
-                f"the megastep kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K}, T={self.T} (SHAPES in csrc/"
-                f"{'.cu, csrc/'.join(MEGASTEP_SOURCES)}.cu; ROADMAP.md, port "
-                "queue item 9)")
-        # engine.supports rejects other kinds on the pose-family source
-        assert self.source != "megastep" or set(self.inst_kind) <= set(POSE_KINDS)
-        return lib
+        return load(self.source)
 
     def smem_bytes(self, lib, G: int) -> int:
         """Dynamic shared memory of one block of the instance at group G."""
@@ -404,6 +508,13 @@ class _StepKernel:
         fn.restype = ctypes.c_int
         return fn(self.sp.V, self._chain[0].shape[0], self.nbranch, self.sp.C,
                   G, self.sec_mask, self.ncol, self.sp.K, self.T)
+
+    def smem_bytes_py(self, G: int) -> int:
+        """The same from the Python copy of the layout
+        (:func:`megastep_smem_bytes`)."""
+        return megastep_smem_bytes(self.sp.V, self._chain[0].shape[0], self.nbranch,
+                                   self.sp.C, G, self.sec_mask, self.ncol, self.sp.K,
+                                   self.T)
 
     def resident_blocks(self, lib, dev, G: int) -> int:
         """Blocks of the instance at group G the card holds at once: 0 where

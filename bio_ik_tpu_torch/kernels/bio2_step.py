@@ -10,8 +10,10 @@ used for chains with floating or planar joints.
 
 :func:`make_species_inner` is the plain torch version over ``(rows, N)``
 tensors; :class:`SpeciesKernel` is the wrapper a caller uses: on CUDA
-tensors it launches the hand-written kernel of ``csrc/species.cu``, on CPU
-tensors it runs the plain version.  There is no fallback between the two.
+tensors it launches the hand-written kernel (``csrc/species.cuh``, the
+instance of ``csrc/species.cu`` or one generated for the shape on first
+use: :func:`species_instance`), on CPU tensors it runs the plain version.
+There is no fallback between the two.
 
 Two randomness modes, as the megastep's: noise tensors from the caller (the
 TPU kernel's interface, in which the plain version is held to the JAX
@@ -35,8 +37,9 @@ import torch
 
 __all__ = ["SpeciesParams", "SEC_ROWS", "SEC_TERMS", "_P", "make_sec_eval",
            "preselect", "sec_term_mask", "quat_mask", "make_species_inner", "SpeciesKernel",
-           "SPECIES_SHAPES", "species_flops_per_lane", "species_bytes_per_lane",
-           "species_philox_calls_per_lane"]
+           "SPECIES_SHAPES", "SMEM_OPTIN", "species_flops_per_lane",
+           "species_bytes_per_lane", "species_philox_calls_per_lane",
+           "species_smem_bytes", "species_instance"]
 
 _P = 2  # parents kept per species (reference: population_size=2, ik_evolution_2.cpp:137)
 
@@ -55,8 +58,13 @@ SEC_TERMS = ("alpha", "beta", "gamma", "delta")
 
 # (V, K, quaternion mask) instances of csrc/species.cu (its SHAPES macro):
 # free_arm (a floating joint's quaternion genes at slot 3: mask 8) and
-# planar_arm (none)
+# planar_arm (none); any other shape is generated on its first use
+# (species_instance)
 SPECIES_SHAPES = ((10, 1, 8), (5, 1, 0))
+# shared memory per block an H100 grants a kernel that opts in (227 KB):
+# the megastep and species instances whose block exceeds it are not built
+SMEM_OPTIN = 232448
+_BLOCK = 128          # threads per block (csrc/species.cuh BLOCK)
 
 _MEMETIC_CODE = {"": 0, "q": 1, "l": 2}
 _RNG_CODE = {"clt4": 1, "box_muller": 2}   # csrc/species.cu rng_mode (0: tensors)
@@ -157,6 +165,44 @@ class SpeciesParams(NamedTuple):
     quat_slices: tuple = ()  # start rows of floating-joint quat gene
     #                          blocks, renormalized after each mutation
     #                          (reference: ik_evolution_2.cpp:320-324)
+
+
+def species_smem_bytes(V: int, K: int, C: int, sec_mask: int) -> int:
+    """Dynamic shared memory of one species block, bytes (a copy of
+    ``species_smem_bytes`` in ``csrc/species.cuh``): per thread, the delta
+    rows of each (v, k) as two float4, each variable's bounds, the momentum
+    classes and (without secondary terms) the best children's genes, and
+    with secondary terms the children's two fitness values."""
+    vec = 2 * V * K + V + (2 if sec_mask else 8) * ((V + 3) // 4)
+    return (vec * 4 + (2 * C if sec_mask else 0)) * _BLOCK * 4
+
+
+def species_instance(V: int, K: int, qmask: int, C: int = 16,
+                     sec_mask: int = 0) -> str:
+    """The CUDA source of the species kernel's (V, K, quaternion mask)
+    instance: ``species`` where :data:`SPECIES_SHAPES` has it, else a
+    source generated for the shape (``kernels/build.generate``: its
+    ``SHAPES`` line and the include of ``csrc/species.cuh``).  Raises a
+    ValueError naming the bytes where a block of 128 lanes does not fit in
+    the card's shared memory (:data:`SMEM_OPTIN`)."""
+    from .build import generate
+
+    need = species_smem_bytes(V, K, C, sec_mask)
+    if need > SMEM_OPTIN:
+        raise ValueError(
+            f"the species kernel's (V, K, mask) = {(V, K, qmask)} block of {_BLOCK} "
+            f"lanes needs {need} bytes of shared memory"
+            f"{' with secondary terms' if sec_mask else ''}, over the card's "
+            f"{SMEM_OPTIN} per block")
+    if (V, K, qmask) in SPECIES_SHAPES:
+        return "species"
+    text = (f"// The species kernel's (V, K, quaternion mask) = ({V}, {K}, {qmask})\n"
+            "// instance, generated by bio_ik_tpu_torch/kernels/bio2_step.py::\n"
+            "// species_instance (the step, the kernels and the C API are\n"
+            "// csrc/species.cuh).\n"
+            f"#define SHAPES(X) X({V}, {K}, {qmask})\n\n"
+            '#include "species.cuh"\n')
+    return generate(f"species_gen_{V}_{K}_{qmask}", text, ["-fmad=false"])
 
 
 def species_flops_per_lane(sp: SpeciesParams) -> int:
@@ -400,11 +446,23 @@ class SpeciesKernel:
         self.sec_terms = tuple(sec_terms)
         self.sec_mask = sec_term_mask(self.sec_terms)
         self.inner = make_species_inner(sp, self.sec_terms)
+        self._source = None
         V, K = sp.V, sp.K
         self.rows = (("genes", _P * V), ("grads", _P * V), ("tips0", 7 * K),
                      ("deltas", 7 * V * K), ("gpos", 3 * K), ("gquat", 4 * K),
                      ("wpos", K), ("wrot", K), ("span", V), ("cmin", V),
                      ("cmax", V))
+
+    @property
+    def source(self) -> str:
+        """The instance's CUDA source (:func:`species_instance`: prebuilt or
+        generated), resolved once; a ValueError naming the bytes where its
+        block does not fit on the card."""
+        if self._source is None:
+            sp = self.sp
+            self._source = species_instance(sp.V, sp.K, quat_mask(sp.quat_slices), sp.C,
+                                            self.sec_mask)
+        return self._source
 
     def __call__(self, genes, grads, tips0, deltas, gpos, gquat, wpos, wrot,
                  span, cmin, cmax, noise=None, rates=None, keeps=None, sec=None,
@@ -487,15 +545,8 @@ class SpeciesKernel:
         keeps = genes if keeps is None else keeps                # unread
         sec = genes if sec is None else sec                      # unread
 
-        lib = load("species")
-        lib.species_has_shape.argtypes = [ctypes.c_int] * 2 + [ctypes.c_uint]
-        lib.species_has_shape.restype = ctypes.c_int
+        lib = load(self.source)
         qmask = quat_mask(sp.quat_slices)
-        if not lib.species_has_shape(sp.V, sp.K, qmask):
-            raise ValueError(
-                f"the species kernel is not instantiated for V={sp.V}, "
-                f"K={sp.K}, quaternion mask {qmask} (SHAPES in csrc/species.cu; "
-                "ROADMAP.md, port queue item 9)")
         genes_o, grads_o = torch.empty_like(genes), torch.empty_like(genes)
         fn = lib.species_launch
         fn.restype = ctypes.c_int

@@ -13,6 +13,14 @@ plus the source's own flags in :data:`EXTRA_FLAGS`.  ``-Xptxas -v``
 reports each kernel's registers and spills; the report is kept beside the
 library as ``<name>.ptxas.txt``.  Nothing here runs at
 import time: the CPU tests import every module and have no ``nvcc``.
+
+Besides the files of ``csrc/``, a kernel instance can be a *generated*
+source (:func:`generate`): a few ``#define`` lines and the ``#include`` of
+a ``csrc/*.cuh`` header, written to ``build/kernels/gen/<name>.cu`` and
+compiled with ``-I csrc``.  The megastep and species wrappers generate the
+instance of a shape that no file of ``csrc/`` holds on its first use;
+:func:`load`, :func:`build_all`, :func:`ptxas_report` and
+:data:`BUILD_SECONDS` take a generated name as they take a file's.
 """
 
 from __future__ import annotations
@@ -28,13 +36,14 @@ import threading
 import time
 from typing import Dict, Sequence
 
-__all__ = ["build", "build_all", "load", "ptxas_report", "ptxas_table",
-           "ptxas_rows", "BUILD_DIR", "BUILD_SECONDS", "CSRC"]
+__all__ = ["build", "build_all", "load", "generate", "source_path", "ptxas_report",
+           "ptxas_table", "ptxas_rows", "BUILD_DIR", "BUILD_SECONDS", "CSRC", "GEN_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "kernels")
+GEN_DIR = os.path.join(BUILD_DIR, "gen")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,10 +56,44 @@ EXTRA_FLAGS = {"species": ["-fmad=false"], "megastep_wide": ["--split-compile=0"
                "megastep_high": ["--split-compile=0"]}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# generated sources of this process: name -> (text, extra nvcc flags)
+_generated: Dict[str, tuple] = {}
+
+
+def generate(name: str, text: str, flags: Sequence[str] = ()) -> str:
+    """Register the generated source ``name`` (its text and its nvcc flags
+    beyond :data:`NVCC_FLAGS`); :func:`load` and :func:`build_all` then
+    take the name.  The file is written when it is built.  Returns the
+    name."""
+    if name in EXTRA_FLAGS or os.path.exists(os.path.join(CSRC, f"{name}.cu")):
+        raise ValueError(f"{name} names a source of csrc/")
+    _generated[name] = (text, list(flags))
+    return name
+
+
+def source_path(name: str) -> str:
+    """The ``.cu`` file of a source: ``csrc/<name>.cu`` or, for a
+    generated name, ``build/kernels/gen/<name>.cu``."""
+    if name in _generated:
+        return os.path.join(GEN_DIR, f"{name}.cu")
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def _extra(name: str):
+    return _generated[name][1] if name in _generated else EXTRA_FLAGS.get(name, [])
 
 
 def _flags(name: str):
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    """nvcc's flags for the source (a generated one finds its header with
+    ``-I csrc``)."""
+    return NVCC_FLAGS + ["-I", CSRC] * (name in _generated) + _extra(name)
+
+
+def _text(name: str) -> bytes:
+    if name in _generated:
+        return _generated[name][0].encode()
+    with open(source_path(name), "rb") as f:
+        return f.read()
 
 
 def _nvcc() -> str:
@@ -62,21 +105,35 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    """The library path, named by a hash of the source, the shared headers
-    (``csrc/*.cuh``) and the flags."""
-    digest = hashlib.sha1(" ".join(_flags(name)).encode())
-    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(CSRC, "*.cuh"))):
+    """The library path, named by a hash of the source (a generated
+    source's text), the shared headers (``csrc/*.cuh``) and the flags
+    (``-I csrc`` left out: the checkout's path is no part of the code)."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS + _extra(name)).encode())
+    digest.update(_text(name))
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def _write_generated(name: str) -> str:
+    """Write a generated source's file (through a temporary file and
+    ``os.replace``, so that processes building one shape do not collide)."""
+    path = source_path(name)
+    os.makedirs(GEN_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(_generated[name][0])
+    os.replace(tmp, path)
+    return path
 
 
 def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = _target(name)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    src = _write_generated(name) if name in _generated else source_path(name)
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -86,7 +143,7 @@ def _finish(name: str, proc, tmp: str, out: str, log: str) -> None:
     with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
         f.write(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log[-8000:]}")
+        raise RuntimeError(f"nvcc failed for {source_path(name)}:\n{log[-8000:]}")
     os.replace(tmp, out)
 
 
@@ -95,9 +152,9 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 
 def build_all(names: Sequence[str]) -> float:
-    """Build every named source not yet built, one ``nvcc`` each, all
-    started together; returns the wall seconds (each source's own in
-    :data:`BUILD_SECONDS`)."""
+    """Build every named source (a file of ``csrc/`` or a generated name)
+    not yet built, one ``nvcc`` each, all started together; returns the
+    wall seconds (each source's own in :data:`BUILD_SECONDS`)."""
     t0 = time.perf_counter()
     jobs = [(n, *_start(n)) for n in names if not os.path.exists(_target(n))]
     logs = {}
@@ -117,13 +174,13 @@ def build_all(names: Sequence[str]) -> float:
 
 
 def build(name: str) -> str:
-    """Build ``csrc/<name>.cu`` if needed; returns the library path."""
+    """Build the source ``name`` if needed; returns the library path."""
     build_all([name])
     return _target(name)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of the source ``name``, built on first use."""
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(build(name))
     return _loaded[name]

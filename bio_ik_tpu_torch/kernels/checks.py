@@ -214,15 +214,18 @@ def megastep_inputs(model, tip, sp, n_steps: int, N: int, seed: int = 7,
 
 
 def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
-                   spread: float = 1e-3, sec_terms=(), philox: bool = False):
+                   spread: float = 1e-3, sec_terms=(), philox: bool = False,
+                   inst_kind=None):
     """numpy arguments of one species step (:class:`SpeciesKernel` order)
-    on ``N`` lanes of ``model``/``tip`` with every variable active (K = 1),
-    made from ``seed``: a solve under way as in :func:`megastep_inputs` —
+    on ``N`` lanes of ``model``/``tip`` with every variable active, its
+    K = ``sp.K`` goal instances on ``tip`` of the pose-family kinds
+    ``inst_kind`` (default pose, with bench.py's weights; the rows of
+    :func:`_kind_rows`), made from ``seed``: a solve under way as in
+    :func:`megastep_inputs` —
     one reachable target per species pair (exact FK of a uniform q* whose
     quaternion blocks are normalized), both parents ``spread`` off it —
-    then ``tips0``/``deltas`` from the port's linearizer at parent 0, pose
-    weights of bench.py's goal (so both fitness terms are exercised), the
-    model's bounds, and noise and rates with the real rate ladder; with
+    then ``tips0``/``deltas`` from the port's linearizer at parent 0 (each
+    instance's copy of the tip's), the model's bounds, and noise and rates with the real rate ladder; with
     ``sec_terms`` also ``keeps (gens, 1, N)`` and the packed secondary rows
     (:func:`sec_rows`), drawn after everything else.
 
@@ -235,8 +238,11 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
     from ..kinematics import make_fk, make_linearizer
 
     V, K = sp.V, sp.K
-    if V != model.nvars or K != 1:
-        raise ValueError("species_inputs wants every variable active and K = 1")
+    inst_kind = list(inst_kind or ["pose"] * K)
+    if V != model.nvars or len(inst_kind) != K or not set(inst_kind) <= {
+            "position", "orientation", "pose"}:
+        raise ValueError("species_inputs wants every variable active and K "
+                         "pose-family instances")
     rng = np.random.default_rng(seed)
     f32 = np.float32
     b = model._np_bounds
@@ -251,21 +257,24 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
                     np.tile(b["clip_max"], 2)[:, None]).astype(f32)
     tips0, deltas = make_linearizer(model, [tip], list(range(V)))(
         torch.from_numpy(np.ascontiguousarray(genes[:V].T)))
-    # (N, T=1, V, 7) → rows v·7 + d
-    deltas = deltas[:, 0].reshape(N, V * 7).T
+    # (N, T=1, V, 7) → rows v·K·7 + k·7 + d, every instance on the tip
+    deltas = np.tile(deltas[:, 0].numpy()[:, :, None], (1, 1, K, 1)).reshape(N, V * K * 7).T
+    goal = [_kind_rows(kd, tg.pos[:, 0].numpy(), tg.quat[:, 0].numpy())
+            for kd in inst_kind]
 
     def rows(x):
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
 
+    def stack(i):
+        return np.ascontiguousarray(np.concatenate([np.reshape(g[i], (-1, N))
+                                                    for g in goal]), dtype=f32)
+
     args = (
         genes,
         (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
-        np.ascontiguousarray(tips0[:, 0].numpy().T),
-        np.ascontiguousarray(deltas.numpy()),
-        np.ascontiguousarray(tg.pos[:, 0].numpy().T),
-        np.ascontiguousarray(tg.quat[:, 0].numpy().T),
-        np.ones((K, N), f32),
-        np.full((K, N), 0.25, f32),
+        np.ascontiguousarray(np.tile(tips0[:, 0].numpy().T, (K, 1))),
+        np.ascontiguousarray(deltas),
+        stack(0), stack(1), stack(3), stack(4),             # gpos, gquat, wpos, wrot
         rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
     )
     if philox:

@@ -7,8 +7,9 @@
 Drives ``bio_ik_tpu_torch`` (never JAX) through its paths — the fullstep
 tier (bench.py's configuration, the reference's recommended regularized
 one, the JAX suite's two PR2 dual-arm rows on the wide megastep instance
-and its snake-32 and humanoid rows on the high-DOF instances, latency mode
-and the island path of the single-query entry points), the species tier
+and its snake-32 and humanoid rows on the high-DOF instances, shapes that
+no prebuilt source holds on instances generated on first use, latency
+mode and the island path of the single-query entry points), the species tier
 (floating and planar chains, with and without the regularizers) and the
 FP32 peak calibration — and holds each hand-written CUDA kernel against
 its plain torch version.  Phases, each
@@ -18,12 +19,16 @@ non-zero:
   build           — card name and power limit, torch/CUDA versions, nvcc
                     build of every kernel source (megastep.cu,
                     megastep_wide.cu, megastep_high.cu, species.cu,
-                    peak.cu, in parallel), each source's nvcc seconds,
-                    their ptxas reports and, per kernel instance,
-                    registers, stack and spill; the wide (17, 2, 2) and
-                    high-DOF (32, 1, 1), (30, 3, 3) instances' shared
-                    memory per block at every group size and resident
-                    blocks at each one built (or "does not fit");
+                    peak.cu, and the sources generated for GEN_CASES'
+                    and GEN_SPECIES' shapes, in parallel; then the
+                    (7, 2, 1) instance alone — a first use's cost), each
+                    source's nvcc seconds, their ptxas reports and, per
+                    kernel instance, registers, stack and spill; the
+                    wide, high-DOF and generated instances' shared
+                    memory per block at every group size (the Python
+                    copy of the layout held equal to the header's) and
+                    resident blocks at each one built (or "does not
+                    fit");
   check           — megastep vs plain version, noise-tensor mode, main-path
                     sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
                     steps, N=4096): ≥ 85 % of lanes agree, beside the plain
@@ -63,6 +68,17 @@ non-zero:
                     PoseGoal, each against its floor; the high-DOF
                     fullsteps (the humanoid also once per non-pose kind
                     on the head, and every kind's exact fitness);
+  shapes_check    — the instances generated on first use (the arm's pose +
+                    lookat (7, 2, 1) and lookat alone on the wide layout
+                    (7, 1, 1), the dual arm's two poses + head lookat with
+                    the regularizers (17, 3, 3), the humanoid's two hands
+                    (30, 2, 2)) against their plain versions as the wide
+                    instances in `check` (exact FK and fitness, lane
+                    agreement over two steps against the CPU-vs-card
+                    floor, two wrong plain versions, every group size
+                    bitwise equal to the smallest, Philox mode) and their
+                    fullstep entries; the species (10, 2, 8) instance
+                    bitwise in both modes at 131 072 lanes;
   main            — bench.py's configuration through AdaptiveBatchSolver at
                     B = 65 536: success, median position error, solves/s,
                     launches per solve_batch (4), determinism, the flags
@@ -89,6 +105,20 @@ non-zero:
                     share, and humanoid_whole_body_mm (1 mm, six phases,
                     :188-197) at B = 4 096: the main fields; then the 1 cm
                     problem with the regularizers at B = 4 096;
+  shapes_main     — five paths on generated instances, each through the
+                    entry points a user calls: (i) pr2_arm PositionGoal +
+                    LookAtGoal at 1 cm, the main ladder, B = 65 536; (ii)
+                    pr2_dual's two PoseGoals, the head's LookAtGoal at the
+                    grippers' midpoint and the regularizers at 0.1, dtwist
+                    1 cm, the dual ladder, B = 16 384; (iii) free_arm
+                    PositionGoal + OrientationGoal (5 mm, 5 mrad) on the
+                    species tier, B = 16 384: success against its bar
+                    (JAX_SHAPES_SUCCESS), median errors, the lookat error
+                    and secondary fitness beside ablations, launches per
+                    solve_batch (4; 16), ms per batch, device idle; (iv)
+                    pr2_arm's LookAtGoal alone (B = 65 536) and (v) the
+                    humanoid's two hands (B = 16 384): success, errors,
+                    launches, ms per batch;
   latency         — latency mode and the single-query entry points through
                     tools/bench_latency (PR2, PoseGoal at 1 mm, 200 targets):
                     IKSolver.solve_until at steps_per_check 4, 8, 16, 32
@@ -97,7 +127,7 @@ non-zero:
                     deadlines and their device-step budgets at 32 islands
                     (≥ 0.99 at 20 ms), the island path's success on 50
                     targets at 64 steps (within 0.1 of the JAX package's)
-                    and IKSolver.solve's time on 8, solve / search /
+                    and IKSolver.solve's time on 3, solve / search /
                     solve_until of each bio2
                     mode and with elite_migration, the other modes raising
                     with their item, a query's prep / kernel / glue split, the
@@ -111,8 +141,9 @@ non-zero:
   species_check   — species kernel vs plain version in both randomness
                     modes (noise tensors; in-kernel Philox against
                     make_species_inner on philox_draw's tensors): free_arm
-                    at 524 288 lanes, planar_arm at 131 072, the
-                    secondary-goal instance at 131 072, bitwise under CLT4;
+                    (524 288 lanes), planar_arm and the secondary-goal
+                    instance (131 072) at their paths' launches, bitwise
+                    under CLT4;
                     Box–Muller by lane agreement beside its CPU-vs-card
                     floor; by stage, and the noise-tensor floor;
   species_main    — the JAX suite's free_arm_floating_base row at B = 65 536,
@@ -121,14 +152,16 @@ non-zero:
   species_sec_main — free_arm with the two regularizers at B = 16 384;
   times           — every kernel instance at its paths' launch shapes (CUDA
                     events; the megastep at the 8 ladder launches with the
-                    G chosen and every G; the species kernel in both modes
-                    with registers, spill and resident blocks) beside its
-                    plain version, its FLOP/byte bound and the bound of the
-                    generator's integer work (its Philox calls, one call's
-                    SASS counted, at the card's IMAD, ALU and issue rates);
+                    G chosen, every G at the first; the species kernel in
+                    both modes with registers, spill and resident blocks)
+                    beside its plain version, its FLOP/byte bound and the
+                    bound of the generator's integer work (its Philox
+                    calls, one call's SASS counted, at the card's IMAD, ALU
+                    and issue rates);
                     the wide instance at both dual paths' launch shapes,
-                    the high-DOF ones at snake_main's and humanoid_main's
-                    (every G that fits at each shape);
+                    the high-DOF ones at snake_main's and humanoid_main's,
+                    the generated ones at their paths' first launch
+                    (every G that fits at each path's first shape);
   profile         — torch.profiler over one solve_batch of each path: device
                     time by kernel, device busy and idle share; no torch
                     random-number kernel on the species paths;
@@ -158,6 +191,8 @@ PHASES = ((1, 24), (2, 32), (4, 64), (8, 32))
 FRACTIONS = (0.15, 0.03, 0.008)
 B_MAIN = 65536
 QUEUE, REPEATS = 16, 3      # bench.py: 16 batches queued, best of 3
+# the other paths time one queue of batches
+EARLIER_REPEATS = 1
 # species tier: (urdf, batch, quaternion gene slices); tip "tool"
 SPECIES_PATHS = (("free_arm.urdf", 65536, (3,)), ("planar_arm.urdf", 16384, ()))
 SPECIES_QUEUE = 4
@@ -257,13 +292,53 @@ LAT_SHAPES = ((8, 4), (8, 8), (8, 16), (8, 32), (64, 8))
 # bench_latency's queries; the island path's success on the first 50 of
 # them at max_steps 64 (one solve_batch with fused="off": 50 IKSolver.solve
 # calls take 2.7–4.4 s each on the card's host, ~200 s), and IKSolver.solve
-# itself timed on the first 8
+# itself timed on the first 3
 LAT_N = 200
-LAT_ISLAND_N, LAT_ISLAND_STEPS, LAT_ISLAND_TIMED = 50, 64, 8
+LAT_ISLAND_N, LAT_ISLAND_STEPS, LAT_ISLAND_TIMED = 50, 64, 3
 # the JAX package's island path on those 50 targets at that budget: 50 of
 # 50 on a CPU (tests/test_torch_latency.py::test_island_solve_matches_jax_
 # on_bench_latency_targets, which prints it); the port's must be within 0.1
 JAX_ISLAND_SUCCESS = 1.0
+
+
+# the shapes no prebuilt source holds, each on an instance generated and
+# built on its first use (kernels/bio2_megastep.megastep_instance,
+# bio2_step.species_instance): (kernel row, robot of Smoke.robots, goal
+# kinds — instance k on tip k mod T —, secondary terms of its checks).  The
+# arm's pose + lookat (7, 2, 1) and the dual arm's two poses + the head's
+# lookat (17, 3, 3) are shapes_main's paths (i) and (ii), a lookat alone on
+# the 7-DOF arm (the wide layout at (7, 1, 1)) and the humanoid's two hands
+# (30, 2, 2) its paths (iv) and (v)
+HEAD = "head_tilt_link"
+GEN_CASES = (
+    ("megastep_7x2x1", "arm", ("pose", "lookat"), ()),
+    ("megastep_7x1x1_wide", "arm", ("lookat",), ()),
+    ("megastep_17x3x3", "dual_head", ("pose", "pose", "lookat"), REG_TERMS),
+    ("megastep_30x2x2", "humanoid_hands", ("pose", "pose"), ()),
+)
+# the instance built alone in `build`, after the others: what a first use
+# of a new robot costs on an idle host
+GEN_ALONE = "megastep_7x2x1"
+# the generated species instance: free_arm, PositionGoal + OrientationGoal
+# on its tool, (V, K, quaternion mask) = (10, 2, 8)
+GEN_SPECIES = ("species_10x2x8", "free_arm.urdf", ("position", "orientation"))
+# shapes_main: (i) pr2_arm PositionGoal + LookAtGoal (the JAX package's
+# test_engine_solves_lookat, tests/test_kernel.py:527-561) at 1 cm on the
+# main path's ladder; (ii) pr2_dual's multigoal problem
+# (tests/test_multigoal.py:36-40: both grippers' PoseGoals, the head's
+# LookAtGoal at their midpoint, the regularizers at 0.1) at dtwist 1 cm on
+# the dual ladder; (iii) free_arm PositionGoal + OrientationGoal on the
+# species tier, 5 mm and 5 mrad
+B_ARM_LOOK = 65536
+B_DUAL_HEAD = 16384
+DH_WEIGHT = 0.1
+B_FREE_PO = 16384
+# the JAX package's fused path (plain jnp on a CPU, each ladder phase its
+# own jitted engine solve) on the first 256 of each path's targets at its
+# ladder: its success, and each bar (PERF.md §6)
+JAX_SHAPES_SUCCESS = {"arm_lookat": 0.3828125, "dual_head": 0.67578125, "free_posori": 1.0}
+SHAPES_BARS = {"arm_lookat": 0.995, "dual_head": 0.99, "free_posori": 0.99,
+               "arm_lookat_alone": 0.99, "humanoid_two_hands": 0.995}
 
 
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -272,6 +347,7 @@ KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 # pl.pallas_call)
 MEGASTEP_TPU = "bio_ik_tpu/kernels/bio2_megastep.py:321"
 FULLSTEP_TPU = "bio_ik_tpu/kernels/bio2_fullstep.py:692"
+SPECIES_TPU = "bio_ik_tpu/kernels/bio2_step.py:461"
 
 
 def emit(obj):
@@ -294,14 +370,14 @@ def phase_shapes(phases=PHASES, fractions=FRACTIONS, B=B_MAIN):
     return out
 
 
-def queued_ms(s, keys, data, queue):
-    """Best of ``REPEATS`` × ``queue`` queued ``s.solve_batch`` calls with
+def queued_ms(s, keys, data, queue, repeats=REPEATS):
+    """Best of ``repeats`` × ``queue`` queued ``s.solve_batch`` calls with
     fresh keys (bench.py's timing): the per-batch times in ms."""
     import torch
     from bio_ik_tpu_torch.engine import fold_in
 
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         for r in range(queue):
             s.solve_batch(fold_in(keys, 1000 + r), data)
@@ -424,10 +500,16 @@ class Smoke:
             self.robots[name] = (RobotModel.from_urdf_file(asset_path(urdf)),
                                  RobotModel.from_urdf_file(asset_path(urdf), device="cpu"),
                                  tips)
+        # the robots of this slice's generated instances (GEN_CASES)
+        hum_card, hum_cpu, _ = self.robots["humanoid"]
+        self.robots.update(arm=(self.model, self.cpu_model, (TIP,)),
+                           dual_head=(self.dual, self.dual_cpu, DUAL_TIPS + (HEAD,)),
+                           humanoid_hands=(hum_card, hum_cpu, ("r_hand", "l_hand")))
         self.kernels = {name: {} for name in (
             "megastep", "megastep_dual", "megastep_dual_sec", "megastep_snake",
             "megastep_snake_sec", "megastep_humanoid", "megastep_humanoid_sec", "species",
-            "fullstep", "fullstep_dual", "fullstep_snake", "fullstep_humanoid", "peak")}
+            "fullstep", "fullstep_dual", "fullstep_snake", "fullstep_humanoid", "peak")
+            + tuple(c[0] for c in GEN_CASES) + (GEN_SPECIES[0],)}
 
     # -------------------------------------------------------------- 1 --
     def build(self):
@@ -436,32 +518,61 @@ class Smoke:
                                                     ptxas_report, ptxas_table)
         from bio_ik_tpu_torch.kernels.checks import HIGH_DOF
 
-        secs = build_all(list(SOURCES))
+        # the generated instances (their sources resolved, not yet built):
+        # with the prebuilt sources, all started together, then GEN_ALONE on
+        # its own — what a first use of a new robot pays on an idle host
+        gen = {name: self._wide(1, kinds, terms, robot=robot)[0].source
+               for name, robot, kinds, terms in GEN_CASES}
+        gen[GEN_SPECIES[0]] = self._species_args(GEN_SPECIES[1], 2, dev="cpu",
+                                                 kinds=GEN_SPECIES[2])[0].source
+        together = list(SOURCES) + [src for n, src in gen.items() if n != GEN_ALONE]
+        secs = build_all(together)
+        alone = build_all([gen[GEN_ALONE]])
+        names = list(SOURCES) + list(gen.values())
         emit({"phase": "build", "gpu": smi_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": secs,
+              "generated": gen, "generated_alone": gen[GEN_ALONE],
+              "generated_alone_nvcc_s": alone,
               "nvcc_s_by_source": dict(BUILD_SECONDS),
               "ptxas": {n: ptxas_report(n).strip().splitlines()
-                        for n in SOURCES}})
-        for n in SOURCES:
+                        for n in names}})
+        for n in names:
             for row in ptxas_table(n):
                 emit({"phase": "build", "source": n, **row})
+        for name, src in gen.items():
+            self.kernels[name].update(generated=src, nvcc_s=BUILD_SECONDS[src])
         # the wide and high-DOF instances: shared memory per block at every
         # G (those the source does not build too) and resident blocks at
         # the G it builds (0: the block does not fit)
-        for robot, kinds, terms in [("dual", POSE2_KINDS, ()), ("dual", MG_KINDS, REG_TERMS)] + [
+        # and the generated ones, each with and without secondary terms; the
+        # Python copy of the layout (bio2_megastep.megastep_smem_bytes, which
+        # decides the group sizes a generated instance builds) must give the
+        # bytes the header's layout() gives
+        mismatch = []
+        for robot, kinds, terms in [("arm", ("pose",), ()), ("arm", ("pose",), REG_TERMS),
+                                    ("dual", POSE2_KINDS, ()), ("dual", MG_KINDS, REG_TERMS)] + [
                 (robot, kinds, t) for robot, (_, _, kinds, terms) in HIGH_DOF.items()
-                for t in ((), terms)]:
+                for t in ((), terms)] + [
+                (robot, kinds, t) for _, robot, kinds, terms in GEN_CASES
+                for t in ((), REG_TERMS)]:
             mega, sp = self._wide(1, kinds, terms, robot=robot)
             lib = mega._lib(2)
             resident = {g: mega.resident_blocks(lib, self.dev, g) for g in mega.groups}
+            smem = {g: mega.smem_bytes(lib, g) for g in (1, 2, 4, 8)}
+            py = {g: mega.smem_bytes_py(g) for g in (1, 2, 4, 8)}
+            if smem != py:
+                mismatch.append((robot, kinds, terms, smem, py))
             emit({"phase": "build", "robot": robot,
                   "instance": [sp.V, sp.K, len(self.robots[robot][2])], "inst_kind": kinds,
                   "sec_terms": terms, "source": mega.source,
+                  "generated": mega.instance.generated,
                   "dependency_columns": mega.ncol,
-                  "smem_bytes_by_group": {g: mega.smem_bytes(lib, g) for g in (1, 2, 4, 8)},
+                  "smem_bytes_by_group": smem,
                   "resident_blocks_by_group": {g: r or "does not fit"
                                                for g, r in resident.items()},
                   "groups_not_built": [g for g in (1, 2, 4, 8) if g not in mega.groups]})
+        if mismatch:
+            raise AssertionError(f"the Python layout differs from the header's: {mismatch}")
         self.philox_sass = philox_sass_count()
         emit({"phase": "build", "philox_call_sass": self.philox_sass})
 
@@ -491,7 +602,7 @@ class Smoke:
               model=None, inst_tip=None, robot="dual"):
         """The megastep of a wide or high-DOF instance on ``robot``'s tips
         (:attr:`robots`), goal instance k of ``kinds`` on tip
-        ``inst_tip[k]`` (default k), every variable active."""
+        ``inst_tip[k]`` (default k mod T), every variable active."""
         from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
 
@@ -501,7 +612,8 @@ class Smoke:
         sp = SpeciesParams(V=V, K=K, C=16, gens=gens, mem_iters=mem_iters,
                            memetic=memetic)
         return Megastep(model, list(tips), list(range(V)),
-                        list(range(K) if inst_tip is None else inst_tip), sp, n_steps,
+                        [k % len(tips) for k in range(K)] if inst_tip is None
+                        else list(inst_tip), sp, n_steps,
                         sec_terms=terms, inst_kind=list(kinds)), sp
 
     def _wide_inputs(self, sp, n_steps, N, kinds, terms=(), with_noise=True, seed=7,
@@ -564,11 +676,11 @@ class Smoke:
         c_out = plain(cpu_mega, cut(state), cut(consts), cut(noise),
                       None if keep is None else keep[..., :n].cpu())
         row["plain_cpu_vs_card_agree_frac"] = agree_frac(c_out, cut(p_out))
-        K = len(kinds)
-        if K > 1:
+        K, T = len(kinds), len(self.robots[robot][2])
+        if K > 1 and T > 1:
             chain = "control_tips_permuted_agree_frac"
             other, _ = self._wide(2, kinds, terms, robot=robot,
-                                  inst_tip=tuple(range(1, K)) + (0,))
+                                  inst_tip=[(k + 1) % T for k in range(K)])
         else:
             chain = "control_axis_negated_agree_frac"
             other, _ = self._wide(2, kinds, terms, robot=robot,
@@ -851,9 +963,10 @@ class Smoke:
                             torch.arange(B, dtype=torch.int64)], -1).to(dev)
         return s, data, keys, fk, tg
 
-    def _drive(self, s, data, keys, fk, tg, queue, nlaunch, slots=(0,)):
+    def _drive(self, s, data, keys, fk, tg, queue, nlaunch, slots=(0,),
+               repeats=EARLIER_REPEATS):
         """One path through ``s.solve_batch``: warm-up, launches of one call
-        (counts set to 0 just before it), determinism, best of 3 × ``queue``
+        (counts set to 0 just before it), determinism, best of ``repeats`` × ``queue``
         queued batches, success, median position error (the worst of the
         position-goal tips ``slots``) and the success flags re-derived from
         the returned q."""
@@ -872,7 +985,7 @@ class Smoke:
         launches = Megastep.launches
         res2 = s.solve_batch(keys, data)
         det = all(torch.equal(a, b) for a, b in zip(res, res2))
-        times = queued_ms(s, keys, data, queue)
+        times = queued_ms(s, keys, data, queue, repeats)
         dt = min(times) / 1e3
         success = float(res.success.float().mean())
         sl = list(slots)
@@ -901,7 +1014,7 @@ class Smoke:
 
     def main(self):
         s, data, keys, fk, tg = self._bench(self.model, B_MAIN)
-        _, _, out = self._drive(s, data, keys, fk, tg, QUEUE, len(PHASES))
+        _, _, out = self._drive(s, data, keys, fk, tg, QUEUE, len(PHASES), repeats=REPEATS)
         # a small solve on the card and on the CPU plain path (same keys,
         # same Philox bits): statistically alike, not lane-identical —
         # trajectories far from a solution part ways on rounding
@@ -1166,7 +1279,7 @@ class Smoke:
         # regularized problem's secondary fitness
         s0, d0, k0, _, _ = self._bench(self.model, B_MAIN, REG_PHASES, REG_FRACTIONS)
         r0 = s0.solve_batch(k0, d0)
-        t0_ms = queued_ms(s0, k0, d0, REG_QUEUE)
+        t0_ms = queued_ms(s0, k0, d0, REG_QUEUE, EARLIER_REPEATS)
         qa0 = r0.q[:, torch.as_tensor(p.active_vars, device=r0.q.device)]
         fsec0 = float(p.fitness_secondary(qa0, data).median())
         ft = IKSolver.for_tips(self.model, [TIP], SolverConfig(
@@ -1396,20 +1509,22 @@ class Smoke:
                                  f"the JAX package's {JAX_ISLAND_SUCCESS}")
 
     def _species_args(self, urdf, N, gens=8, mem_iters=8, memetic="q", dev=None,
-                      sec_terms=(), philox=False):
+                      sec_terms=(), philox=False, kinds=("pose",)):
         """A SpeciesKernel of the robot's species path and one step's
-        arguments on ``N`` lanes (kernels/checks.species_inputs): the
-        noise-tensor arguments, or with ``philox`` ``(args, kw)`` for the
-        in-kernel Philox mode (``kw``: salt, sec)."""
+        arguments on ``N`` lanes (kernels/checks.species_inputs; a goal
+        instance of each of ``kinds`` on the tool): the noise-tensor
+        arguments, or with ``philox`` ``(args, kw)`` for the in-kernel
+        Philox mode (``kw``: salt, sec)."""
         from bio_ik_tpu_torch.interop import tree_from_numpy
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel, SpeciesParams
         from bio_ik_tpu_torch.kernels.checks import species_inputs
 
         qs = dict((u, q) for u, _, q in SPECIES_PATHS)[urdf]
         model = self.sp_cpu_models[urdf]
-        sp = SpeciesParams(V=model.nvars, K=1, gens=gens, mem_iters=mem_iters,
+        sp = SpeciesParams(V=model.nvars, K=len(kinds), gens=gens, mem_iters=mem_iters,
                            memetic=memetic, quat_slices=qs)
-        args = species_inputs(model, "tool", sp, N, sec_terms=sec_terms, philox=philox)
+        args = species_inputs(model, "tool", sp, N, sec_terms=sec_terms, philox=philox,
+                              inst_kind=list(kinds))
         return SpeciesKernel(sp, sec_terms), tree_from_numpy(args, dev or self.dev)
 
     @staticmethod
@@ -1422,9 +1537,9 @@ class Smoke:
 
     def species_check(self):
         """The species kernel against its plain version in both randomness
-        modes: free_arm at 524 288 lanes, planar_arm at 131 072 and the
-        secondary-goal instance (the regularizers' terms, free_arm) at
-        131 072 — bitwise under CLT4 and with noise tensors; Box–Muller
+        modes: free_arm, planar_arm and the secondary-goal instance (the
+        regularizers' terms, free_arm) at each path's launch lanes (524 288,
+        131 072, 131 072) — bitwise under CLT4 and with noise tensors; Box–Muller
         (logf/cosf) by lane agreement (≥ 0.999, just under the floor of the
         plain version on the CPU against itself on the card: 0.99994 on an
         H100) beside that floor; the noise-tensor
@@ -1433,7 +1548,8 @@ class Smoke:
         from bio_ik_tpu_torch.kernels.checks import lane_agreement, max_abs_err
 
         out = {"phase": "species_check"}
-        shapes = [(urdf, B * SPECIES_ISLANDS * 2, ()) for urdf, B, _ in SPECIES_PATHS] + [
+        shapes = [(urdf, B * SPECIES_ISLANDS * 2, ())
+                  for urdf, B, _ in SPECIES_PATHS] + [
             (SPECIES_PATHS[0][0], B_SPECIES_SEC * SPECIES_ISLANDS * 2, REG_TERMS)]
         bitwise, errs = {}, []
         for urdf, N, terms in shapes:
@@ -1502,12 +1618,15 @@ class Smoke:
                                  f"{bm['agree_frac']:.5f} of lanes (< 0.999)")
 
     # -------------------------------------------------------------- 6 --
-    def _species_bench(self, urdf, B, regularized=False):
+    def _species_bench(self, urdf, B, regularized=False, orientation=False):
         """The JAX suite's floating-base row on ``urdf`` at batch ``B``
         (with ``regularized``, plus MinimalDisplacementGoal and
-        AvoidJointLimitsGoal of weight 0.05): targets from FK of
-        numpy.random.default_rng(0) uniform draws in the bounds, seeded at
-        neutral_q()."""
+        AvoidJointLimitsGoal of weight 0.05; with ``orientation``, plus an
+        OrientationGoal on the tool within 5 mrad — shapes_main's path
+        (iii)): targets from FK of numpy.random.default_rng(0) uniform draws
+        in the bounds, seeded at neutral_q()."""
+        import math
+
         import numpy as np
         import torch
         import bio_ik_tpu_torch.goals as G
@@ -1522,30 +1641,38 @@ class Smoke:
             b["min"], b["max"], size=(B, model.nvars)).astype(np.float32)
         tg = fk(torch.as_tensor(qg, device=dev))
         goals = [G.PositionGoal(link="tool")]
+        if orientation:
+            goals.append(G.OrientationGoal(link="tool"))
         if regularized:
             goals += [G.MinimalDisplacementGoal(weight=REG_WEIGHT),
                       G.AvoidJointLimitsGoal(weight=REG_WEIGHT)]
         s = IKSolver(model, goals,
                      SolverConfig(mode="bio2_memetic", dpos=5e-3,
+                                  drot=math.degrees(5e-3) if orientation else float("inf"),
                                   dtwist=float("inf"), max_steps=16,
                                   islands=SPECIES_ISLANDS))
         data = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
                         s.make_data(torch.as_tensor(model.neutral_q())))
         data["primary"][0]["position"] = tg.pos.contiguous()
+        if orientation:
+            data["primary"][1]["orientation"] = tg.quat.contiguous()
         keys = torch.stack([torch.zeros(B, dtype=torch.int64),
                             torch.arange(B, dtype=torch.int64)], -1).to(dev)
         return s, data, keys, fk, tg
 
-    def _species_drive(self, urdf, B, regularized=False):
+    def _species_drive(self, urdf, B, regularized=False, orientation=False,
+                       bar=0.999, repeats=EARLIER_REPEATS):
         """One species-tier path through IKSolver.solve_batch: the fields of
         :meth:`_drive` for the species kernel, the share of unit floating
-        quaternions and the peak memory."""
+        quaternions and the peak memory (with ``orientation``, shapes_main's
+        path (iii), also the median orientation error; success ≥ ``bar``)."""
         import numpy as np
         import torch
         from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel
+        from bio_ik_tpu_torch.math.quat import quat_angle_shortest
         from bio_ik_tpu_torch.robot.urdf import FLOATING
 
-        s, data, keys, fk, tg = self._species_bench(urdf, B, regularized)
+        s, data, keys, fk, tg = self._species_bench(urdf, B, regularized, orientation)
         assert not s.engine.fullstep
         assert s.engine.sec_terms == (REG_TERMS if regularized else ())
         torch.cuda.synchronize()
@@ -1562,7 +1689,7 @@ class Smoke:
         res2 = s.solve_batch(keys, data)
         det = all(torch.equal(a, b) for a, b in zip(res, res2))
         peak = torch.cuda.max_memory_allocated()
-        times = queued_ms(s, keys, data, SPECIES_QUEUE)
+        times = queued_ms(s, keys, data, SPECIES_QUEUE, repeats)
         dt = min(times) / 1e3
         success = float(res.success.float().mean())
         perr = (fk(res.q).pos[:, 0] - tg.pos[:, 0]).norm(dim=-1)
@@ -1589,6 +1716,11 @@ class Smoke:
         if regularized:
             out["median_secondary_fitness"] = float(
                 p.fitness_secondary(qa, data).median())
+        if orientation:
+            out["instance_source"] = s.engine.kernel.source
+            out["median_rot_err_rad"] = float(quat_angle_shortest(
+                fk(res.q).quat[:, 0], tg.quat[:, 0]).median())
+            out["device_idle_share"] = self._profile(s, data, keys)["device_idle_share"]
         fail = None
         if launches != 16:
             fail = f"{launches} species launches per solve_batch"
@@ -1596,7 +1728,7 @@ class Smoke:
             fail = "two runs with the same keys differ"
         elif flags_agree < 0.999:
             fail = "success flags disagree with a re-check"
-        elif not (success >= 0.999 and med <= 5e-4 and np.isfinite(med)):
+        elif not (success >= bar and med <= 5e-4 and np.isfinite(med)):
             fail = "species-tier quality below the limits"
         del s, data, res, res2
         torch.cuda.empty_cache()
@@ -1625,7 +1757,8 @@ class Smoke:
                                                   B_SPECIES_SEC, True)
         s0, d0, k0, _, _ = self._species_bench(SPECIES_PATHS[0][0], B_SPECIES_SEC)
         r0 = s0.solve_batch(k0, d0)
-        out["pose_only_batch_time_ms"] = min(queued_ms(s0, k0, d0, SPECIES_QUEUE))
+        out["pose_only_batch_time_ms"] = min(queued_ms(s0, k0, d0, SPECIES_QUEUE,
+                                                       EARLIER_REPEATS))
         p = s.problem
         qa0 = r0.q[:, torch.as_tensor(p.active_vars, device=r0.q.device)]
         out["median_secondary_fitness_pose_only"] = float(
@@ -1647,15 +1780,17 @@ class Smoke:
     @staticmethod
     def _profile_call(fn):
         """torch.profiler over one warm call of ``fn``: device time by kernel
-        name and the device's busy share of the host-clock wall time."""
+        name and the device's busy share of the host-clock wall time.  It
+        records the device's activity only: the host-side operator events
+        of a species path (~10⁵ a solve_batch) took tens of seconds to
+        gather and were not read."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1689,9 +1824,9 @@ class Smoke:
         emit({"phase": "profile", "path": "regularized",
               **self._profile(s, data, keys)})
         # the species paths draw in the kernel: no torch random-number kernel
-        urdf, B, _ = SPECIES_PATHS[0]
+        urdf = SPECIES_PATHS[0][0]
         rng = []
-        for path, batch, reg in (("species", B, False),
+        for path, batch, reg in (("species", SPECIES_PATHS[0][1], False),
                                  ("species_regularized", B_SPECIES_SEC, True)):
             s, data, keys, _, _ = self._species_bench(urdf, batch, reg)
             out = self._profile(s, data, keys)
@@ -1720,8 +1855,8 @@ class Smoke:
 
     def _mega_rows(self, shapes, sec_terms=()):
         """The megastep (in-kernel Philox) at each (lanes, n_steps) launch
-        shape, CUDA events: at the group size G the wrapper chooses and at
-        every G, beside its bounds: ``bound_ms``, the larger of FP32 (the
+        shape, CUDA events: at the group size G the wrapper chooses and, at
+        the first shape, every G, beside its bounds: ``bound_ms``, the larger of FP32 (the
         TPU cost model's counts, which leave out the secondary terms) and
         bytes, and ``int_bound_ms``, the generator's integer work alone —
         its Philox calls, one call's SASS counted, at the larger of the
@@ -1743,7 +1878,9 @@ class Smoke:
                                                 sec_terms=terms)
                 G = mega.group(mega._lib(N), self.dev, N)
                 by = {}
-                for g in mega.groups if key == "ms" else (G,):
+                # every G at the first launch shape, the chosen one after
+                every = key == "ms" and (N, steps) == tuple(shapes[0])
+                for g in mega.groups if every else (G,):
                     run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
                     run()
                     torch.cuda.synchronize()
@@ -1847,7 +1984,10 @@ class Smoke:
             salt = torch.arange(N, dtype=torch.int32, device=self.dev)[None] // 2
             G = mega.group(mega._lib(N), self.dev, N)
             by = {}
-            for g in self._fitting_groups(mega, N):
+            # every G that fits at the first launch shape, the chosen one
+            # at the others
+            first = (N, steps) == tuple(shapes[0])
+            for g in self._fitting_groups(mega, N) if first else [G]:
                 run = lambda: mega(state, consts, seed=99, salt=salt, group=g)  # noqa: E731
                 run()
                 torch.cuda.synchronize()
@@ -1886,8 +2026,12 @@ class Smoke:
         hb = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)
         mm = phase_shapes(MM_PHASES, MM_FRACTIONS, B_MM)
         reg = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HIGH_SEC)
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
+
         s_kinds = HIGH_DOF["snake"][2]
         h_kinds = HIGH_DOF["humanoid"][2]
+        gen = tuple((name, name, robot, kinds, terms, [self._gen_lanes(name)])
+                    for name, robot, kinds, terms in GEN_CASES)
         for name, key, robot, kinds, terms, shapes in (
                 ("megastep_dual", "pose2", "dual", POSE2_KINDS, (),
                  phase_shapes(DUAL_PHASES, DUAL_FRACTIONS, B_DUAL)),
@@ -1899,9 +2043,11 @@ class Smoke:
                 ("megastep_humanoid", "humanoid_whole_body", "humanoid", h_kinds, (), hb),
                 ("megastep_humanoid", "humanoid_whole_body_mm", "humanoid", h_kinds, (), mm),
                 ("megastep_humanoid_sec", "humanoid_whole_body_regularized", "humanoid",
-                 h_kinds, REG_TERMS, reg[:1])):
+                 h_kinds, REG_TERMS, reg[:1])) + gen:
             out = {"phase": "times", "robot": robot, "path": key, "gpu": smi_line()}
+            Megastep.launches = 0
             rows = self._wide_rows(shapes, kinds, terms, robot)
+            out["launches_timed"] = Megastep.launches
             N = shapes[0][0] if robot != "snake" else shapes[0][0] // 4
             mega, sp = self._wide(1, kinds, terms, robot=robot)
             out["instance"] = [sp.V, sp.K, len(self.robots[robot][2])]
@@ -1925,6 +2071,7 @@ class Smoke:
                 self.kernels[name][f"{key}_ladder_ms"] = out["ladder_ms"]
                 continue
             self.kernels[name].update(
+                launches_timed=out["launches_timed"],
                 ms=r0["ms"], plain_ms=plain_ms, plain_shape=[N, 1],
                 ms_at_plain_shape=one_step_ms, bound_ms=r0["bound_ms"],
                 bound_by=r0["bound_by"], fp32_bound_ms=r0["fp32_bound_ms"],
@@ -1943,25 +2090,31 @@ class Smoke:
         import ctypes
 
         import torch
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Megastep
         from bio_ik_tpu_torch.kernels.bio2_step import (
-            quat_mask, species_bytes_per_lane, species_flops_per_lane,
+            SpeciesKernel, quat_mask, species_bytes_per_lane, species_flops_per_lane,
             species_philox_calls_per_lane)
         from bio_ik_tpu_torch.kernels.build import load, ptxas_table
 
         int_clocks, sm_clocks = self._philox_clocks()
         fp32_rate = FP32_PER_SM_CLK * sm_clocks
-        lib = load("species")
-        lib.species_smem_bytes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint]
-        lib.species_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_uint] + [
-            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        ptx = {r["entry"]: r for r in ptxas_table("species")}
         rows = []
-        for urdf, B, terms in [(u, b, ()) for u, b, _ in SPECIES_PATHS] + [
-                (SPECIES_PATHS[0][0], B_SPECIES_SEC, REG_TERMS)]:
+        # the three paths of the prebuilt instances, then path (iii) of
+        # shapes_main on its generated (10, 2, 8) instance
+        for urdf, B, terms, kinds in [(u, b, (), ("pose",)) for u, b, _ in SPECIES_PATHS] + [
+                (SPECIES_PATHS[0][0], B_SPECIES_SEC, REG_TERMS, ("pose",)),
+                (GEN_SPECIES[1], B_FREE_PO, (), GEN_SPECIES[2])]:
             N = B * SPECIES_ISLANDS * 2
-            kern, (args, kw) = self._species_args(urdf, N, sec_terms=terms, philox=True)
+            kern, (args, kw) = self._species_args(urdf, N, sec_terms=terms, philox=True,
+                                                  kinds=kinds)
             sp = kern.sp
-            row = {"robot": urdf, "sec_terms": terms, "lanes": N, "V": sp.V}
+            lib = load(kern.source)
+            lib.species_smem_bytes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint]
+            lib.species_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [ctypes.c_uint] + [
+                ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+            ptx = {r["entry"]: r for r in ptxas_table(kern.source)}
+            row = {"robot": urdf, "sec_terms": terms, "lanes": N, "V": sp.V, "K": sp.K,
+                   "source": kern.source}
             for mode, run in (("ms", lambda: kern(*args, seed=99, step=0, **kw)),
                               ("plain_ms", lambda: self._species_philox_plain(
                                   kern, args, kw, 99, 0))):
@@ -1969,11 +2122,13 @@ class Smoke:
                 torch.cuda.synchronize()
                 row[mode] = cuda_ms(run, 10 if mode == "ms" else 1)
             del args, kw
-            kern, targs = self._species_args(urdf, N, sec_terms=terms)
+            kern, targs = self._species_args(urdf, N, sec_terms=terms, kinds=kinds)
+            Megastep.launches, SpeciesKernel.launches = 0, 0
             run = lambda: kern(*targs)  # noqa: E731
             run()
             torch.cuda.synchronize()
             row["noise_tensor_ms"] = cuda_ms(run, 10)
+            row["launches_timed"] = SpeciesKernel.launches
             del targs
             torch.cuda.empty_cache()
             flops = species_flops_per_lane(sp) * N
@@ -2009,8 +2164,16 @@ class Smoke:
             noise_tensor_bound_ms=r0["noise_tensor_bound_ms"],
             registers=r0["ptxas"].get("registers"),
             spill_stores=r0["ptxas"].get("spill_stores", 0),
-            regularized_ms=rows[-1]["ms"],
-            regularized_noise_tensor_ms=rows[-1]["noise_tensor_ms"])
+            regularized_ms=rows[2]["ms"],
+            regularized_noise_tensor_ms=rows[2]["noise_tensor_ms"])
+        g = rows[3]
+        self.kernels[GEN_SPECIES[0]].update(
+            ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+            bound_by=g["bound_by"], int_bound_ms=g["int_bound_ms"],
+            noise_tensor_ms=g["noise_tensor_ms"], lanes=g["lanes"],
+            noise_tensor_bound_ms=g["noise_tensor_bound_ms"], smem_bytes=g["smem_bytes"],
+            blocks_per_sm=g["blocks_per_sm"], registers=g["ptxas"].get("registers"),
+            spill_stores=g["ptxas"].get("spill_stores", 0))
 
     # ------------------------------------------------------------ sec --
     def sec_check(self):
@@ -2022,7 +2185,7 @@ class Smoke:
 
         With the regularized path's terms also the floor between two correct
         versions (the plain version on the CPU against itself on the card,
-        on the same lanes and inputs) and two controls, wrong versions that
+        on all its lanes) and two controls, wrong versions that
         the comparison must fail: the plain version without the
         pre-selection (every keep uniform 1, so all C children are kept),
         and without the secondary terms in the memetic search (keep 1 on
@@ -2278,7 +2441,7 @@ class Smoke:
         entry = self.kernels[f"megastep_{robot}"]
         entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), worst)
 
-    def _wide_fullstep_check(self, robot="dual"):
+    def _wide_fullstep_check(self, robot="dual", kinds=None, time_lanes=None, name=None):
         """The fullstep of a wide or high-DOF instance against
         make_fullstep_inner on N_WIDE_CHECK lanes (noise tensors and
         Philox), beside the floor (the plain version on the CPU against
@@ -2294,7 +2457,9 @@ class Smoke:
         rotation weights zeroed (none: the position term dropped).  Then
         its time at ``time_lanes`` (the multigoal path's phase-1 lanes on
         the dual arm, the humanoid path's on the others) beside its bound
-        and the plain version's time."""
+        and the plain version's time.  With ``kinds`` (a generated
+        instance's goal kinds, instance k on tip k mod T) it runs those
+        alone and records them under the kernel row ``name``."""
         import torch
         from bio_ik_tpu_torch.kernels.bio2_fullstep import LINK_KINDS, array_draw_gen
         from bio_ik_tpu_torch.kernels.bio2_megastep import (
@@ -2305,14 +2470,19 @@ class Smoke:
 
         card, cpu, tips = self.robots[robot]
         V = card.nvars
-        if robot == "dual":
+        if kinds is not None:
+            runs, path_kinds = [tuple(kinds)], tuple(kinds)
+        elif robot == "dual":
             runs = [("pose", kind) for kind in LINK_KINDS]
-            path_kinds, time_lanes = MG_KINDS, phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0]
+            path_kinds = MG_KINDS
         else:
             path_kinds = HIGH_DOF[robot][2]
             runs = [path_kinds] + [path_kinds[:-1] + (kind,) for kind in LINK_KINDS
                                    if len(path_kinds) > 1]
-            time_lanes = phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)[0][0]
+        time_lanes = time_lanes or (
+            phase_shapes(MG_PHASES, MG_FRACTIONS, B_MG)[0][0] if robot == "dual"
+            else phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)[0][0])
+        T = len(tips)
         N, n = N_WIDE_CHECK, N_WIDE_FLOOR
         out = {"phase": "fullstep_check", "robot": robot,
                "instance": [V, len(path_kinds), len(tips)], "lanes": N}
@@ -2322,7 +2492,7 @@ class Smoke:
         def fullstep(kinds, model=None, inst_tip=None):
             K = len(kinds)
             return Fullstep(model or card, list(tips), list(range(V)),
-                            list(range(K) if inst_tip is None else inst_tip),
+                            [k % T for k in range(K)] if inst_tip is None else inst_tip,
                             SpeciesParams(V=V, K=K), inst_kind=list(kinds))
 
         for kinds in runs:
@@ -2346,8 +2516,9 @@ class Smoke:
             row["agree_limit"] = min(0.85, row["plain_cpu_vs_card_agree_frac"] - 0.03)
             names = [nm for nm, _ in fs.rows]
             wrong = {}
-            if K > 1:
-                wrong["tips_permuted"] = (fullstep(kinds, inst_tip=tuple(range(1, K)) + (0,)),
+            if K > 1 and T > 1:
+                wrong["tips_permuted"] = (fullstep(kinds, inst_tip=[(k + 1) % T
+                                                                    for k in range(K)]),
                                           args)
             else:
                 wrong["axis_negated"] = (fullstep(kinds, axis_negated(card, V // 2)), args)
@@ -2405,13 +2576,259 @@ class Smoke:
                    launches_timed=launches, noise_tensor_bound_ms=bound,
                    philox_bound_ms=bound_p, gpu=smi_line())
         emit(out)
-        self.kernels[f"fullstep_{robot}"].update(
+        fields = dict(
             launches=launches, agree_frac=worst, max_abs_err=max(errs), ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if bound > ops_ms else "operations", philox_ms=ms_p,
             philox_bound_ms=bound_p, lanes=N)
+        if name is None:
+            self.kernels[f"fullstep_{robot}"].update(fields)
+        else:           # a generated instance's row keeps its fullstep entry's
+            self.kernels[name].update({f"fullstep_{k}": v for k, v in fields.items()})
         del state, consts, noise, args
         torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- shapes --
+    def _gen_lanes(self, name):
+        """(lanes, n_steps) of the first launch of a generated instance's
+        path: shapes_main's (i) and (ii), the arm's main ladder for the
+        lookat alone, humanoid_main's for the two hands."""
+        return {"megastep_7x2x1": phase_shapes()[0],
+                "megastep_7x1x1_wide": phase_shapes()[0],
+                "megastep_17x3x3": phase_shapes(DUAL_PHASES, DUAL_FRACTIONS, B_DUAL_HEAD)[0],
+                "megastep_30x2x2": phase_shapes(HB_PHASES, HB_FRACTIONS, B_HB)[0]}[name]
+
+    def shapes_check(self):
+        """The instances generated on first use against their plain versions:
+        each megastep instance of GEN_CASES with :meth:`_wide_fk_check`
+        (exact FK and fitness, no selection, on its path's first-launch
+        lanes), :meth:`_wide_check` (lane agreement over two steps against
+        its CPU-vs-card floor, two wrong plain versions, every group size it
+        builds bitwise equal to the smallest, Philox mode) and its fullstep
+        entry (:meth:`_wide_fullstep_check` on its goal kinds); the
+        generated species instance bitwise against its plain version in
+        Philox mode under CLT4 and with noise tensors, on path (iii)'s
+        131 072 lanes."""
+        import torch
+        from bio_ik_tpu_torch.kernels.checks import max_abs_err
+
+        for name, robot, kinds, terms in GEN_CASES:
+            mega, sp = self._wide(1, kinds, terms, robot=robot)
+            assert mega.instance.generated, mega.instance
+            N = self._gen_lanes(name)[0]
+            self._wide_fk_check(name, kinds, terms, robot=robot, N=N)
+            row = self._wide_check(kinds, terms, robot=robot)
+            emit({"phase": "shapes_check", "kernel": name, "source": mega.source,
+                  "instance": [sp.V, sp.K, len(self.robots[robot][2])], **row})
+            self.kernels[name].update(
+                agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
+                floor_agree_frac=row["plain_cpu_vs_card_agree_frac"],
+                group=row["group_chosen"], groups=list(mega.groups))
+            self._wide_fullstep_check(robot, kinds=kinds, time_lanes=N, name=name)
+        name, urdf, kinds = GEN_SPECIES
+        N = B_FREE_PO * SPECIES_ISLANDS * 2
+        out = {"phase": "shapes_check", "kernel": name, "lanes": N}
+        kern, args = self._species_args(urdf, N, kinds=kinds)
+        assert kern.source.startswith("species_gen_"), kern.source
+        k_out, p_out = kern(*args), kern.inner(*args)
+        torch.cuda.synchronize()
+        out.update(source=kern.source, noise_tensor_bitwise_frac=bitwise_frac(k_out, p_out, N))
+        errs = [max(max_abs_err(a, b) for a, b in zip(k_out, p_out))]
+        del args, k_out, p_out
+        kern, (args, kw) = self._species_args(urdf, N, philox=True, kinds=kinds)
+        k_out = kern(*args, seed=2024, step=5, **kw)
+        p_out = self._species_philox_plain(kern, args, kw, 2024, 5)
+        torch.cuda.synchronize()
+        out["philox_bitwise_frac"] = bitwise_frac(k_out, p_out, N)
+        errs.append(max(max_abs_err(a, b) for a, b in zip(k_out, p_out)))
+        emit(out)
+        self.kernels[name].update(agree_frac=min(out["noise_tensor_bitwise_frac"],
+                                                 out["philox_bitwise_frac"]),
+                                  max_abs_err=max(errs))
+        del args, kw, k_out, p_out
+        torch.cuda.empty_cache()
+        if min(out["noise_tensor_bitwise_frac"], out["philox_bitwise_frac"]) < 1.0:
+            raise AssertionError(f"the generated species instance is not bitwise its "
+                                 f"plain version on every lane: {out}")
+
+    @staticmethod
+    def _bar(path):
+        """A shapes_main path's success bar: SHAPES_BARS, or the JAX
+        package's own success on its targets less 0.01 where that is
+        lower."""
+        jax_success = JAX_SHAPES_SUCCESS[path]
+        return SHAPES_BARS[path] if jax_success is None else min(
+            SHAPES_BARS[path], jax_success - 0.01)
+
+    def _lookat_err(self, s, data, fk, q):
+        """The median lookat error (problem._EVALUATORS, without its weight)
+        of the returned configurations ``q`` under ``s``'s problem."""
+        import torch
+        from bio_ik_tpu_torch.problem import _EVALUATORS
+
+        p = s.problem
+        li = [grp.kind for grp in p.primary].index("lookat")
+        t = fk(q)
+        tips = torch.cat([t.pos, t.quat], -1)
+        return float(_EVALUATORS["lookat"](p, p.primary[li], data["primary"][li], tips,
+                                           None, None)[:, 0].median())
+
+    def shapes_main(self):
+        """This slice's paths at full width on instances generated on first
+        use: (i) pr2_arm PositionGoal + LookAtGoal at 1 cm on the main
+        ladder, B = 65 536, the lookat error beside a solve with the
+        LookAtGoal at weight 0; (ii) pr2_dual's two PoseGoals, the head's
+        LookAtGoal at the grippers' midpoint and the regularizers at 0.1,
+        dtwist 1 cm, the dual ladder, B = 16 384, the lookat error and the
+        secondary fitness each beside its ablation; (iii) free_arm
+        PositionGoal + OrientationGoal (5 mm, 5 mrad) on the species tier,
+        B = 16 384; (iv) pr2_arm's LookAtGoal alone, each scenario's target
+        a point of the arm's workspace, on the main ladder, B = 65 536;
+        (v) the humanoid's two hands (PoseGoals at 1 cm), humanoid_main's
+        ladder, B = 16 384.  Launches per solve_batch: 4 megastep, 16
+        species; each path's seconds."""
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import SolverConfig
+
+        fails = []
+        # (i)
+        t0 = time.perf_counter()
+        cfg = SolverConfig(mode="bio2_memetic", dpos=1e-2, dtwist=float("inf"))
+
+        def arm(weight):
+            return self._dual_bench(B_ARM_LOOK, [G.PositionGoal(link=TIP), G.LookAtGoal(
+                link=TIP, **{**LOOKAT, "weight": weight})], cfg, PHASES, FRACTIONS,
+                robot="arm")
+
+        s, data, keys, fk, tg, slots = arm(LOOKAT["weight"])
+        eng = s.solvers[0].engine
+        assert eng.mega.instance.generated and eng.mega.source == self.kernels[
+            "megastep_7x2x1"].get("generated", eng.mega.source)
+        warm_s = s.warmup()
+        res, _, out = self._drive(s, data, keys, fk, tg, DUAL_QUEUE, len(PHASES), slots)
+        s0, d0, k0, _, _, _ = arm(0.0)
+        r0 = s0.solve_batch(k0, d0)
+        out = {"phase": "shapes_main", "path": "arm_lookat", "instance_source": eng.mega.source,
+               "warmup_s": warm_s, **out,
+               "median_lookat_err": self._lookat_err(s, data, fk, res.q),
+               "median_lookat_err_lookat_weight_0": self._lookat_err(s, data, fk, r0.q),
+               "success_rate_lookat_weight_0": float(r0.success.float().mean()),
+               "success_bar": self._bar("arm_lookat"),
+               "jax_success_256": JAX_SHAPES_SUCCESS["arm_lookat"],
+               "device_idle_share": self._profile(s, data, keys)["device_idle_share"],
+               "seconds": time.perf_counter() - t0, "gpu": smi_line()}
+        emit(out)
+        self.kernels["megastep_7x2x1"]["launches"] = out["launches_per_solve_batch"]
+        if out["success_rate"] < out["success_bar"]:
+            fails.append(f"(i) success below its bar: {out['success_rate']}")
+        if not out["median_lookat_err"] < out["median_lookat_err_lookat_weight_0"]:
+            fails.append("(i) the LookAtGoal did not lower the lookat error")
+        del s, data, keys, res, s0, d0, k0, r0
+        # (ii)
+        t0 = time.perf_counter()
+        cfg = SolverConfig(mode="bio2_memetic", dtwist=1e-2)
+        regs = [G.MinimalDisplacementGoal(weight=DH_WEIGHT),
+                G.AvoidJointLimitsGoal(weight=DH_WEIGHT)]
+
+        def dual(weight, with_regs=True):
+            goals = [G.PoseGoal(link=t) for t in DUAL_TIPS] + [G.LookAtGoal(
+                link=HEAD, **{**LOOKAT, "weight": weight})] + regs * with_regs
+            s, data, keys, fk, tg, slots = self._dual_bench(
+                B_DUAL_HEAD, goals, cfg, DUAL_PHASES, DUAL_FRACTIONS, robot="dual_head")
+            li = [grp.kind for grp in s.problem.primary].index("lookat")
+            data["primary"][li]["target"] = (0.5 * (tg.pos[:, 0] + tg.pos[:, 1]))[:, None] \
+                .contiguous()
+            return s, data, keys, fk, tg, slots
+
+        s, data, keys, fk, tg, slots = dual(LOOKAT["weight"])
+        eng = s.solvers[0].engine
+        assert eng.mega.instance.generated and eng.sec_terms == REG_TERMS
+        warm_s = s.warmup()
+        res, qa, out = self._drive(s, data, keys, fk, tg, DUAL_QUEUE, len(DUAL_PHASES), slots)
+        p = s.problem
+        s1, d1, k1, _, _, _ = dual(0.0)
+        r1 = s1.solve_batch(k1, d1)
+        s2, d2, k2, _, _, _ = dual(LOOKAT["weight"], with_regs=False)
+        r2 = s2.solve_batch(k2, d2)
+        active = p.active_vars
+        out = {"phase": "shapes_main", "path": "dual_head", "instance_source": eng.mega.source,
+               "warmup_s": warm_s, **out,
+               "median_lookat_err": self._lookat_err(s, data, fk, res.q),
+               "median_lookat_err_lookat_weight_0": self._lookat_err(s, data, fk, r1.q),
+               "median_secondary_fitness": float(p.fitness_secondary(qa, data).median()),
+               "median_secondary_fitness_without_regularizers": float(
+                   p.fitness_secondary(r2.q[:, torch.as_tensor(active, device=r2.q.device)],
+                                       data).median()),
+               "ablation_success_rates": [float(r1.success.float().mean()),
+                                          float(r2.success.float().mean())],
+               "success_bar": self._bar("dual_head"),
+               "jax_success_256": JAX_SHAPES_SUCCESS["dual_head"],
+               "device_idle_share": self._profile(s, data, keys)["device_idle_share"],
+               "seconds": time.perf_counter() - t0, "gpu": smi_line()}
+        emit(out)
+        self.kernels["megastep_17x3x3"]["launches"] = out["launches_per_solve_batch"]
+        if out["success_rate"] < out["success_bar"]:
+            fails.append(f"(ii) success below its bar: {out['success_rate']}")
+        if not out["median_lookat_err"] < out["median_lookat_err_lookat_weight_0"]:
+            fails.append("(ii) the LookAtGoal did not lower the lookat error")
+        if not (out["median_secondary_fitness"]
+                < out["median_secondary_fitness_without_regularizers"]):
+            fails.append("(ii) the regularizers did not lower the secondary fitness")
+        del s, data, keys, res, s1, d1, k1, r1, s2, d2, k2, r2
+        # (iii)
+        t0 = time.perf_counter()
+        out, fail = self._species_drive(GEN_SPECIES[1], B_FREE_PO, orientation=True,
+                                        bar=self._bar("free_posori"))
+        assert out["instance_source"] == self.kernels[GEN_SPECIES[0]].get(
+            "generated", out["instance_source"]), out["instance_source"]
+        out = {"phase": "shapes_main", "path": "free_posori", **out,
+               "success_bar": self._bar("free_posori"),
+               "jax_success_256": JAX_SHAPES_SUCCESS["free_posori"],
+               "seconds": time.perf_counter() - t0, "gpu": smi_line()}
+        emit(out)
+        self.kernels[GEN_SPECIES[0]]["launches"] = out["launches_per_solve_batch"]
+        if fail:
+            fails.append(f"(iii) {fail}")
+        # (iv) and (v): the two generated instances no JAX suite row names
+        for path, name, robot, goals, B, phases, fractions, queue in (
+                ("arm_lookat_alone", "megastep_7x1x1_wide", "arm",
+                 [G.LookAtGoal(link=TIP, **LOOKAT)], B_ARM_LOOK, PHASES, FRACTIONS,
+                 DUAL_QUEUE),
+                ("humanoid_two_hands", "megastep_30x2x2", "humanoid_hands",
+                 [G.PoseGoal(link=t) for t in self.robots["humanoid_hands"][2]], B_HB,
+                 HB_PHASES, HB_FRACTIONS, HB_QUEUE)):
+            t0 = time.perf_counter()
+            cfg = SolverConfig(mode="bio2_memetic", dpos=1e-2, dtwist=float("inf"))
+            s, data, keys, fk, tg, slots = self._dual_bench(B, goals, cfg, phases, fractions,
+                                                            robot=robot)
+            eng = s.solvers[0].engine
+            assert eng.mega.instance.generated and eng.mega.source == self.kernels[
+                name].get("generated", eng.mega.source)
+            lookat = path == "arm_lookat_alone"
+            if lookat:
+                data["primary"][0]["target"] = tg.pos[:, :1].contiguous()
+            res, _, out = self._drive(s, data, keys, fk, tg, queue, len(phases),
+                                      slots or (0,))
+            out = {"phase": "shapes_main", "path": path, "instance_source": eng.mega.source,
+                   **out, "success_bar": SHAPES_BARS[path]}
+            if lookat:          # no position goal: the lookat error instead
+                del out["median_pos_err_m"]
+                seed = torch.as_tensor(self.model.neutral_q(), device=self.dev).expand(B, -1)
+                out.update(median_lookat_err=self._lookat_err(s, data, fk, res.q),
+                           median_lookat_err_seed=self._lookat_err(s, data, fk, seed))
+                if not out["median_lookat_err"] < out["median_lookat_err_seed"]:
+                    fails.append(f"({path}) the lookat error did not fall from the seed's")
+            elif not out["median_pos_err_m"] <= 1e-3:
+                fails.append(f"({path}) median position error above 1 mm: {out}")
+            out.update(seconds=time.perf_counter() - t0, gpu=smi_line())
+            emit(out)
+            self.kernels[name]["launches"] = out["launches_per_solve_batch"]
+            if out["success_rate"] < out["success_bar"]:
+                fails.append(f"({path}) success below its bar: {out['success_rate']}")
+            del s, data, keys, res
+        if fails:
+            raise AssertionError(f"shapes_main: {fails}")
 
     # ------------------------------------------------------------ mfu --
     def mfu(self):
@@ -2474,9 +2891,9 @@ class Smoke:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
-                    "latency_check,main,regularized_main,dual_main,multigoal_main,"
-                    "snake_main,humanoid_main,latency,species_check,species_main,"
-                    "species_sec_main,times,profile,mfu",
+                    "shapes_check,latency_check,main,regularized_main,dual_main,"
+                    "multigoal_main,snake_main,humanoid_main,shapes_main,latency,"
+                    "species_check,species_main,species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()
     try:
@@ -2498,26 +2915,29 @@ def main():
         emit({"phase_seconds": {name: time.perf_counter() - t0}})
     k = smoke.kernels
     emit({"kernels": [dict(
-        name=name, route="cuda", source=f"bio_ik_tpu_torch/csrc/{src}.cu",
+        name=name, route="cuda", source=f"bio_ik_tpu_torch/csrc/{src}",
         replaces=replaces, launches=k[name].get("launches"),
         max_abs_err=k[name].get("max_abs_err"), ms=k[name].get("ms"),
         plain_ms=k[name].get("plain_ms"), bound_ms=k[name].get("bound_ms"),
         bound_by=k[name].get("bound_by"), library_ms=None,
         **{x: v for x, v in k[name].items() if x not in KERNEL_KEYS})
         for name, src, replaces in (
-            ("megastep", "megastep", MEGASTEP_TPU),
-            ("megastep_dual", "megastep_wide", MEGASTEP_TPU),
-            ("megastep_dual_sec", "megastep_wide", MEGASTEP_TPU),
-            ("megastep_snake", "megastep_high", MEGASTEP_TPU),
-            ("megastep_snake_sec", "megastep_high", MEGASTEP_TPU),
-            ("megastep_humanoid", "megastep_high", MEGASTEP_TPU),
-            ("megastep_humanoid_sec", "megastep_high", MEGASTEP_TPU),
-            ("species", "species", "bio_ik_tpu/kernels/bio2_step.py:461"),
-            ("fullstep", "megastep", FULLSTEP_TPU),
-            ("fullstep_dual", "megastep_wide", FULLSTEP_TPU),
-            ("fullstep_snake", "megastep_high", FULLSTEP_TPU),
-            ("fullstep_humanoid", "megastep_high", FULLSTEP_TPU),
-            ("peak", "peak", "tools/bench_mfu.py:85"))]})
+            ("megastep", "megastep.cu", MEGASTEP_TPU),
+            ("megastep_dual", "megastep_wide.cu", MEGASTEP_TPU),
+            ("megastep_dual_sec", "megastep_wide.cu", MEGASTEP_TPU),
+            ("megastep_snake", "megastep_high.cu", MEGASTEP_TPU),
+            ("megastep_snake_sec", "megastep_high.cu", MEGASTEP_TPU),
+            ("megastep_humanoid", "megastep_high.cu", MEGASTEP_TPU),
+            ("megastep_humanoid_sec", "megastep_high.cu", MEGASTEP_TPU),
+            ("species", "species.cu", SPECIES_TPU),
+            ("fullstep", "megastep.cu", FULLSTEP_TPU),
+            ("fullstep_dual", "megastep_wide.cu", FULLSTEP_TPU),
+            ("fullstep_snake", "megastep_high.cu", FULLSTEP_TPU),
+            ("fullstep_humanoid", "megastep_high.cu", FULLSTEP_TPU),
+            ("peak", "peak.cu", "tools/bench_mfu.py:85"))
+            # the generated instances: the header, and the shape in "generated"
+            + tuple((name, "megastep.cuh", MEGASTEP_TPU) for name, *_ in GEN_CASES)
+            + ((GEN_SPECIES[0], "species.cuh", SPECIES_TPU),)]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

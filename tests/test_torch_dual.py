@@ -55,19 +55,30 @@ def dual():
     return RobotModel.from_urdf_file(asset_path("pr2_dual.urdf"), device="cpu")
 
 
-def test_wide_megastep_body_matches_jax(dual):
-    """One launch of the (17, 2, 2) body, pose + lookat with the two
-    regularizers' secondary terms, one step at N = 256: lane agreement
-    ≥ 0.9 with the JAX body (measured 1.0 over two steps)."""
+@pytest.mark.parametrize("tips,kinds", [
+    (TIPS, KINDS),
+    # the JAX package's own multigoal problem (tests/test_multigoal.py:36-40):
+    # both grippers' PoseGoals and the head's LookAtGoal, (V, K, T) = (17, 3, 3),
+    # an instance generated on first use on the card
+    (TIPS + ["head_tilt_link"], ["pose", "pose", "lookat"]),
+], ids=["17x2x2", "17x3x3"])
+def test_wide_megastep_body_matches_jax(dual, tips, kinds):
+    """One launch of the wide body, with the two regularizers' secondary
+    terms, one step at N = 256: lane agreement ≥ 0.9 with the JAX body —
+    the (17, 2, 2) instance's pose + lookat (measured 1.0 over two steps)
+    and the (17, 3, 3) multigoal problem."""
+    K = len(kinds)
+    sp = SpeciesParams(**{**SP, "K": K})
+    jsp = JSpeciesParams(**{**SP, "K": K})
     jm = JRobotModel.from_urdf_file(asset_path("pr2_dual.urdf"))
-    state, consts, noise = megastep_inputs(dual, TIPS, SpeciesParams(**SP), 1, 256,
-                                           inst_kind=KINDS, sec_terms=TERMS)
+    state, consts, noise = megastep_inputs(dual, tips, sp, 1, 256,
+                                           inst_kind=kinds, sec_terms=TERMS)
     assert len(consts) == 12                  # gaux after gquat, sec at the end
-    body, F = make_megastep_body(dual, TIPS, list(range(17)), [0, 1],
-                                 SpeciesParams(**SP), 1, sec_terms=TERMS, inst_kind=KINDS)
-    jbody, jF = j_make_megastep_body(jm, TIPS, list(range(17)), [0, 1],
-                                     JSpeciesParams(**SP), 1, use_pltpu_roll=False,
-                                     sec_terms=TERMS, inst_kind=KINDS, unroll=True)
+    body, F = make_megastep_body(dual, tips, list(range(17)), list(range(K)), sp, 1,
+                                 sec_terms=TERMS, inst_kind=kinds)
+    jbody, jF = j_make_megastep_body(jm, tips, list(range(17)), list(range(K)), jsp, 1,
+                                     use_pltpu_roll=False, sec_terms=TERMS,
+                                     inst_kind=kinds, unroll=True)
     assert F == jF == 0
     t_out = body(tree_from_numpy(state, "cpu"), tree_from_numpy(consts, "cpu"),
                  array_draw(*tree_from_numpy(noise[:4], "cpu"), SP["gens"],
@@ -156,9 +167,10 @@ def test_card_takes_the_dual_paths_and_names_the_gaps(dual):
     """On a card the fused engine takes ``pr2_dual_pose2`` and
     ``pr2_dual_multigoal`` (the wide instance) and ``snake32_position`` and
     ``humanoid_whole_body`` (the high-DOF instances, with and without the
-    regularizers), rejects the shapes no source instantiates (ROADMAP item
-    9: the snake with a joint fixed), non-pose primaries on a narrow
-    (pose-family) instance and on a floating chain."""
+    regularizers), and the shapes no prebuilt source holds (the snake with a
+    joint fixed, a LookAtGoal on the 7-DOF arm) on instances generated for
+    them; it rejects non-pose primaries on a floating chain (the JAX
+    engine's own reason)."""
     pose2 = IKSolver(dual, [G.PoseGoal(link=R), G.PoseGoal(link=L)])
     assert _on_card(pose2) is None
     assert _on_card(IKSolver(dual, _multigoal(), SolverConfig(**MULTIGOAL_CFG))) is None
@@ -170,15 +182,14 @@ def test_card_takes_the_dual_paths_and_names_the_gaps(dual):
         assert _on_card(IKSolver(m, goals)) is None
         assert _on_card(IKSolver(m, goals + regs)) is None
     snake = RobotModel.from_urdf_file(asset_path("snake.urdf"), device="cpu")
-    reason = _on_card(IKSolver(snake, [G.PositionGoal(link="head")],
-                               fixed_joints=[snake.joint_names[2]]))
-    assert "not instantiated" in reason and "(31, 1, 1)" in reason
-    assert "queue item 9" in reason
+    s = IKSolver(snake, [G.PositionGoal(link="head")], fixed_joints=[snake.joint_names[2]])
+    assert _on_card(s) is None and s.engine.mega.instance.generated
     arm = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
     look = IKSolver(arm, [G.LookAtGoal(link=R)])
     assert look.engine is not None                 # CPU: the plain version
-    reason = _on_card(look)
-    assert "pose family only" in reason and "queue item 9" in reason
+    assert _on_card(look) is None
+    inst = look.engine.mega.instance
+    assert inst.generated and inst.wide and inst.source == "megastep_gen_7_1_1_g124"
     free = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
     s = IKSolver(free, [G.LookAtGoal(link="tool")])
     assert s.engine is None and "fullstep kernel" in s.unsupported

@@ -153,15 +153,19 @@ def _on_card(iksolver):
 
 def test_supports_splits_shared_and_card_reasons(arm):
     """The JAX engine's reasons (mode, goal kinds) send a problem to the
-    island path on both packages; a missing CUDA instance is the card's
-    alone (item 9), and ``supports`` is the first of the two."""
+    island path on both packages; a kernel block that does not fit in the
+    card's shared memory is the card's alone, and ``supports`` is the first
+    of the two."""
     reg = [G.PoseGoal(link=TIP), G.MinimalDisplacementGoal(weight=0.1)]
     s = IKSolver(arm, reg, SolverConfig(mode="bio2"))
     assert _on_card(s) == (None, None)
     snake = RobotModel.from_urdf_file(asset_path("snake.urdf"), device="cpu")
-    gap = IKSolver(snake, [G.PositionGoal(link="head")], fixed_joints=[snake.joint_names[2]])
+    fixed = IKSolver(snake, [G.PositionGoal(link="head")], fixed_joints=[snake.joint_names[2]])
+    assert _on_card(fixed) == (None, None)
+    free = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
+    gap = IKSolver(free, [G.PositionGoal(link="tool")] * 4)
     shared, card = _on_card(gap)
-    assert shared is None and "(31, 1, 1)" in card and "item 9" in card
+    assert shared is None and "233472 bytes" in card and "shared memory" in card
     assert FusedBio2Engine.supports(gap) == card
     look_free = IKSolver(RobotModel.from_urdf_file(asset_path("free_arm.urdf"),
                                                    device="cpu"),
@@ -174,20 +178,21 @@ def test_supports_splits_shared_and_card_reasons(arm):
 
 
 def test_kernel_gaps_raise_instead_of_the_island_path(arm, monkeypatch):
-    """A problem whose only gap is a missing CUDA instance raises from
-    ``solve_batch``; ``solve_until`` raises on a fullstep chain and takes
-    the island branch on a species-tier chain (as JAX's does for every
-    species-tier chain); ``solve`` runs the island path for every problem."""
+    """A problem whose only gap is the card's (its kernel block does not
+    fit in shared memory) raises from ``solve_batch``; ``solve_until``
+    raises on a fullstep chain and takes the island branch on a
+    species-tier chain (as JAX's does for every species-tier chain);
+    ``solve`` runs the island path for every problem."""
     def gap(iksolver):
-        return "no instance (ROADMAP.md, port queue item 9)"
+        return "no group size fits in the card's 232448 bytes of shared memory"
 
     monkeypatch.setattr(FusedBio2Engine, "card_reason", staticmethod(gap))
     s = IKSolver(arm, [G.PoseGoal(link=TIP)], SolverConfig(max_steps=2, steps_per_check=2))
     assert s.engine is None and s.kernel_gap
     data = tree_map(lambda x: x[None], s.make_data(arm.neutral_q()))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="232448 bytes"):
         s.solve_batch(torch.tensor([[0, 1]]), data)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="232448 bytes"):
         s.solve_until(arm.neutral_q())
     assert s.solve(arm.neutral_q()).q.shape == (arm.nvars,)
     free = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
@@ -195,7 +200,7 @@ def test_kernel_gaps_raise_instead_of_the_island_path(arm, monkeypatch):
                   SolverConfig(dtwist=float("inf"), max_steps=2, steps_per_check=2))
     assert sf.kernel_gap and not sf.fullstep_chain
     assert sf.solve_until(free.neutral_q()).q.shape == (free.nvars,)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="232448 bytes"):
         AdaptiveBatchSolver(arm, [G.PoseGoal(link=TIP)], phases=((1, 2), (2, 2))
                             ).solve_batch(torch.tensor([[0, 1]]), data)
 

@@ -54,19 +54,23 @@ def _model(name):
     return RobotModel.from_urdf_file(asset_path(name), device="cpu")
 
 
-@pytest.mark.parametrize("name,quat,memetic", [
-    ("free_arm.urdf", (3,), "q"),
-    ("planar_arm.urdf", (), "l"),
-    ("free_arm.urdf", (3,), ""),
+@pytest.mark.parametrize("name,quat,memetic,kinds", [
+    ("free_arm.urdf", (3,), "q", None),
+    ("planar_arm.urdf", (), "l", None),
+    ("free_arm.urdf", (3,), "", None),
+    # PositionGoal + OrientationGoal on the tool: the (10, 2, 8) instance,
+    # generated on first use on the card; the JAX inner runs eagerly (~1 s
+    # on a CPU, its jit compile at K = 2 ~11 s)
+    ("free_arm.urdf", (3,), "q", ("position", "orientation")),
 ])
-def test_species_inner_matches_jax(name, quat, memetic):
+def test_species_inner_matches_jax(name, quat, memetic, kinds):
     tm = _model(name)
-    sp = dict(V=tm.nvars, K=1, C=4, gens=2, mem_iters=2, memetic=memetic,
-              quat_slices=quat)
-    args = species_inputs(tm, "tool", SpeciesParams(**sp), 256)
+    sp = dict(V=tm.nvars, K=len(kinds or "x"), C=4, gens=2, mem_iters=2,
+              memetic=memetic, quat_slices=quat)
+    args = species_inputs(tm, "tool", SpeciesParams(**sp), 256, inst_kind=kinds)
     out = make_species_inner(SpeciesParams(**sp))(*tree_from_numpy(args, "cpu"))
-    ref = jax.jit(j_make_species_inner(JSpeciesParams(**sp)))(
-        *[jnp.asarray(a) for a in args])
+    j_inner = j_make_species_inner(JSpeciesParams(**sp))
+    ref = (j_inner if kinds else jax.jit(j_inner))(*[jnp.asarray(a) for a in args])
     agree = lane_agreement(out, [np.asarray(r) for r in ref])
     assert agree.float().mean() >= 0.9
 
@@ -319,8 +323,10 @@ def test_adaptive_species_tier():
 
 
 def test_kernel_shape_gap_is_rejected():
-    """On a card, a (V, K, T) that no CUDA source instantiates is rejected
-    at construction, naming the shape and the ROADMAP item."""
+    """On a card, a shape that no CUDA source of ``csrc/`` holds runs on an
+    instance generated for it (the snake with a joint fixed, (31, 1, 1);
+    the floating arm with one, (9, 1)); only a block that does not fit in
+    the card's shared memory is rejected at construction, in bytes."""
     def on_card(solver):
         solver.problem.device = torch.device("cuda")   # metadata only
         return FusedBio2Engine.supports(solver)
@@ -328,12 +334,13 @@ def test_kernel_shape_gap_is_rejected():
     snake = _model("snake.urdf")
     s = IKSolver(snake, [G.PositionGoal(link="head")], fixed_joints=[snake.joint_names[2]])
     assert FusedBio2Engine.supports(s) is None          # CPU: plain version
-    reason = on_card(s)
-    assert "(31, 1, 1)" in reason and "queue item 9" in reason
+    assert on_card(s) is None and s.engine.mega.source == "megastep_gen_31_1_1_g2"
     free = _model("free_arm.urdf")
     s = IKSolver(free, [G.PositionGoal(link="tool")], fixed_joints=["j3"])
+    assert on_card(s) is None and s.engine.kernel.source.startswith("species_gen_9_1_")
+    s = IKSolver(free, [G.PositionGoal(link="tool")] * 4)
     reason = on_card(s)
-    assert "species" in reason and "(9, 1)" in reason and "queue item 9" in reason
+    assert "species" in reason and "(10, 4, 8)" in reason and "233472 bytes" in reason
     for name, tip in (("free_arm.urdf", "tool"), ("planar_arm.urdf", "tool"),
                       ("pr2_arm.urdf", "r_gripper_tool_frame")):
         assert on_card(IKSolver(_model(name), [G.PoseGoal(link=tip)])) is None
