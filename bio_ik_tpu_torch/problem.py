@@ -6,14 +6,15 @@ deduped tip list, the active-variable set, per-kind struct-of-arrays goal
 groups whose numeric parameters live in the ``data`` dict from
 :meth:`Problem.make_data`, and the vectorized acceptance test.
 
-This port carries the pose family (position, orientation, pose), the
-eight other kinds the fused step evaluates in-kernel (lookat,
-max_distance, min_distance, line, plane, side, direction, cone) and the
-five joint-space kinds (avoid_joint_limits, center_joints, regularization,
-minimal_displacement, joint_variable, also as secondary goals).  Touch,
-balance and the function goals raise ``NotImplementedError`` at
-construction, naming ROADMAP.md port queue item 5d (only the unfused
-solvers evaluate them).
+It carries every goal kind of the JAX package: the pose family (position,
+orientation, pose), the eight other kinds the fused step evaluates
+in-kernel (lookat, max_distance, min_distance, line, plane, side,
+direction, cone), the five joint-space kinds (avoid_joint_limits,
+center_joints, regularization, minimal_displacement, joint_variable, also
+as secondary goals), and the four only the island path evaluates: touch,
+balance, link_function and joint_function (the last also as a secondary
+goal).  A function goal's callable takes torch tensors and must be
+differentiable by autograd (the memetic gradient runs through it).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ _JOINT_KINDS = ("avoid_joint_limits", "center_joints", "regularization",
 # (kernels/bio2_fullstep.eval_goals)
 _LINK_KINDS = ("lookat", "max_distance", "min_distance", "line", "plane",
                "side", "direction", "cone")
-_PORTED_KINDS = ("position", "orientation", "pose") + _LINK_KINDS + _JOINT_KINDS
+# the kinds valid as secondary goals (JAX problem.py:154-168)
+_SECONDARY_KINDS = _JOINT_KINDS + ("joint_function",)
 
 
 def _norm(v):
@@ -103,24 +105,12 @@ class Problem:
         self.dtype = np.dtype(config.dtype)
         self.tdtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
 
-        tip_links: List[str] = []
-
-        def tip_slot(link: str) -> int:
-            if link not in model.link_index:
-                raise ValueError(f"unknown link {link!r}")
-            if link not in tip_links:
-                tip_links.append(link)
-            return tip_links.index(link)
+        # the tip links, deduplicated in order of first use: the goals'
+        # links, then those a builder adds (balance: every massive link)
+        self.tip_links: List[str] = []
 
         for g in self.goal_list:
-            kind = _KIND_OF.get(type(g))
-            if kind not in _PORTED_KINDS:
-                raise NotImplementedError(
-                    f"goal kind {kind or type(g).__name__!r} is not ported yet "
-                    "(ROADMAP.md, port queue item 5d)")
-            # secondary goals are joint-space goals (JAX problem.py:154-168;
-            # joint_function, the other one, raised above)
-            if g.secondary and kind not in _JOINT_KINDS:
+            if g.secondary and _KIND_OF[type(g)] not in _SECONDARY_KINDS:
                 raise ValueError(
                     f"secondary goals must be joint-space goals, got {type(g).__name__}")
 
@@ -132,8 +122,12 @@ class Problem:
         # fixed (reference: problem.cpp:102-204)
         fixed = set(fixed_joints)
         for g in self.goal_list:
+            names: Tuple[str, ...] = ()
             if isinstance(g, G.JointVariableGoal):
-                n = g.variable_name
+                names = (g.variable_name,)
+            elif isinstance(g, G.JointFunctionGoal):
+                names = tuple(g.variable_names)
+            for n in names:
                 if n not in model.var_index:
                     raise ValueError(f"unknown variable {n!r}")
                 v = model.var_index[n]
@@ -172,20 +166,29 @@ class Problem:
         pending: Dict[Tuple[str, bool], List[Tuple[G.Goal, int]]] = {}
         for g in self.goal_list:
             kind = _KIND_OF[type(g)]
-            slot = tip_slot(g.link) if getattr(g, "link", "") else -1
+            slot = self.tip_slot(g.link) if getattr(g, "link", "") else -1
             pending.setdefault((kind, g.secondary), []).append((g, slot))
 
         for (kind, secondary), items in pending.items():
-            grp = _BUILDERS[kind](self, items)
-            grp.kind = kind
-            grp.goal_type = kind if kind in _POSE_TYPES else "unknown"
-            (self.secondary if secondary else self.primary).append(grp)
+            # a builder gives its groups: one, or one per goal (the function
+            # goals and balance, whose static structure differs per goal)
+            for grp in _BUILDERS[kind](self, items):
+                grp.kind = kind
+                grp.goal_type = kind if kind in _POSE_TYPES else "unknown"
+                (self.secondary if secondary else self.primary).append(grp)
 
-        self.tip_links = tip_links
-        self.ntips = len(tip_links)
+        self.ntips = len(self.tip_links)
         self.dpos = config.dpos
         self.drot = config.drot
         self.dtwist = config.dtwist
+
+    def tip_slot(self, link: str) -> int:
+        """The slot of ``link`` among the tips, added at the end when new."""
+        if link not in self.model.link_index:
+            raise ValueError(f"unknown link {link!r}")
+        if link not in self.tip_links:
+            self.tip_links.append(link)
+        return self.tip_links.index(link)
 
     # ------------------------------------------------------------------
     def make_data(self, q_seed_full) -> Dict[str, Any]:
@@ -332,25 +335,103 @@ def _single_group(items) -> GoalGroup:
     return grp
 
 
+def _var_gather(problem, grp, names):
+    """The arrays :func:`_gather_goal_vars` reads for variables ``names``:
+    each one's active slot (−1 when it is not active) and full-vector
+    index; the gather index (0 where inactive) and the mask."""
+    vidx = [problem.model.var_index[n] for n in names]
+    act = problem.active_vars
+    grp.static["slots"] = np.asarray([act.index(v) if v in act else -1 for v in vidx],
+                                     np.int64)
+    grp.static["vidx"] = np.asarray(vidx, np.int64)
+    grp.static["slot"] = np.maximum(grp.static["slots"], 0)
+    grp.static["active"] = grp.static["slots"] >= 0
+
+
 def _build_jv(problem, items):
     """joint_variable: each goal's active slot (−1 when its variable is not
     active) and full-vector index, and its target as a data parameter."""
     grp = _single_group(items)
-    slots, vidx = [], []
-    for g, _ in items:
-        v = problem.model.var_index[g.variable_name]
-        slots.append(problem.active_vars.index(v) if v in problem.active_vars else -1)
-        vidx.append(v)
-    grp.static["slots"] = np.asarray(slots, np.int64)
-    grp.static["vidx"] = np.asarray(vidx, np.int64)
-    # gather indices: the active slot (0 where inactive) and the mask
-    grp.static["slot"] = np.maximum(grp.static["slots"], 0)
-    grp.static["active"] = grp.static["slots"] >= 0
+    _var_gather(problem, grp, [g.variable_name for g, _ in items])
     grp.params["target"] = np.asarray([g.variable_position for g, _ in items])
-    return grp
+    return [grp]
 
 
-_BUILDERS = {
+def _build_touch(problem, items):
+    """touch: each goal's surface — its explicit points (radius 0), or the
+    support set of its link's URDF collision geometry
+    (``RobotModel.collision_support``: a sphere enters as its center with
+    its radius) — padded to a common length by repeating the last point
+    (JAX problem.py:502-530)."""
+    grp = _simple_group(items, position=lambda g: g.position,
+                        normal=lambda g: _norm(g.normal))
+    clouds = [(np.asarray(g.points, np.float64), np.zeros(len(g.points)))
+              if g.points else problem.model.collision_support(g.link)
+              for g, _ in items]
+    maxp = max(len(c) for c, _ in clouds)
+    pts = np.zeros((len(items), maxp, 3))
+    rad = np.zeros((len(items), maxp))
+    for i, (p, r) in enumerate(clouds):
+        pts[i, :len(p)], pts[i, len(p):] = p, p[-1]
+        rad[i, :len(p)], rad[i, len(p):] = r, r[-1]
+    grp.params["points"] = pts
+    grp.params["radii"] = rad
+    return [grp]
+
+
+def _build_link_function(problem, items):
+    """link_function: one group per goal, its callable static (JAX
+    problem.py:598-606)."""
+    groups = []
+    for g, slot in items:
+        grp = _simple_group([(g, slot)])
+        grp.static["function"] = g.function
+        groups.append(grp)
+    return groups
+
+
+def _build_jf(problem, items):
+    """joint_function: one group per goal, its variables' gather arrays and
+    its callable static (JAX problem.py:705-719)."""
+    groups = []
+    for g, _ in items:
+        grp = _single_group([(g, -1)])
+        _var_gather(problem, grp, g.variable_names)
+        grp.static["function"] = g.function
+        groups.append(grp)
+    return groups
+
+
+def _build_balance(problem, items):
+    """balance: every link with inertial mass becomes a tip (reference:
+    BalanceGoal::describe, goal_types.cpp:231-255); its mass fraction and
+    center of mass in link coordinates are static, the target and the axis
+    data (JAX problem.py:730-755)."""
+    m = problem.model
+    massive = [li for li in range(m.nlinks) if m.masses[li] > 0]
+    if not massive and items:
+        raise ValueError("BalanceGoal requires links with inertial mass in the URDF")
+    total = sum(m.masses[li] for li in massive)
+    groups = []
+    for g, _ in items:
+        grp = _single_group([(g, -1)])
+        grp.tip_slots = np.asarray([problem.tip_slot(m.link_names[li])
+                                    for li in massive], np.int64)
+        grp.static["mass_frac"] = np.asarray([m.masses[li] / total for li in massive])
+        grp.static["coms"] = np.asarray([m.coms[li] for li in massive])
+        grp.params["target"] = np.asarray(g.target, np.float64)[None]
+        grp.params["axis"] = _norm(g.axis)[None]
+        groups.append(grp)
+    return groups
+
+
+def _listed(build):
+    """A one-group builder as a builder of a list of groups."""
+    return lambda p, items: [build(p, items)]
+
+
+# the kinds whose goals share one group
+_ONE_GROUP = {
     "position": lambda p, items: _simple_group(items, position=lambda g: g.position),
     "orientation": lambda p, items: _simple_group(
         items, orientation=lambda g: _norm(g.orientation)),
@@ -386,7 +467,15 @@ _BUILDERS = {
     "center_joints": lambda p, items: _single_group(items),
     "regularization": lambda p, items: _single_group(items),
     "minimal_displacement": lambda p, items: _single_group(items),
+}
+
+_BUILDERS = {
+    **{kind: _listed(build) for kind, build in _ONE_GROUP.items()},
     "joint_variable": _build_jv,
+    "touch": _build_touch,
+    "link_function": _build_link_function,
+    "joint_function": _build_jf,
+    "balance": _build_balance,
 }
 
 
@@ -530,6 +619,43 @@ def _eval_jv(problem, grp, gdata, tips, qa, data):
     return d * d
 
 
+# ---- the kinds only the island path evaluates (JAX problem.py:533-760) ---
+
+
+def _eval_touch(problem, grp, gdata, tips, qa, data):
+    tp, tq = _tip_pq(tips, grp)
+    # world-space surface points (..., k, P, 3) and their signed distances;
+    # a point with radius r stands for a sphere, whose deepest extent along
+    # the normal is its center's signed distance minus r
+    world = tp[..., None, :] + quat_rotate(tq[..., None, :], gdata["points"])
+    sd = torch.sum((world - gdata["position"][..., None, :])
+                   * gdata["normal"][..., None, :], dim=-1)
+    d = torch.amin(sd - gdata["radii"], dim=-1)
+    return d * d
+
+
+def _eval_link_function(problem, grp, gdata, tips, qa, data):
+    tp, tq = _tip_pq(tips, grp)
+    return grp.static["function"](tp[..., 0, :], tq[..., 0, :])[..., None]
+
+
+def _eval_jf(problem, grp, gdata, tips, qa, data):
+    vals = _gather_goal_vars(problem, grp, qa, data)
+    preferred = grp.static["function"](vals)
+    return torch.sum(torch.square(preferred - vals), dim=-1)[..., None]
+
+
+def _eval_balance(problem, grp, gdata, tips, qa, data):
+    tp, tq = _tip_pq(tips, grp)
+    coms = grp.index("coms", tips.device).to(tips.dtype)
+    mass = grp.index("mass_frac", tips.device).to(tips.dtype)
+    com = torch.sum((tp + quat_rotate(tq, coms)) * mass[:, None], dim=-2)
+    d = com - gdata["target"][..., 0, :]
+    axis = gdata["axis"][..., 0, :]
+    d = d - axis * torch.sum(axis * d, dim=-1, keepdim=True)
+    return torch.sum(d * d, dim=-1)[..., None]
+
+
 _EVALUATORS = {
     "position": _eval_position,
     "orientation": _eval_orientation,
@@ -547,4 +673,8 @@ _EVALUATORS = {
     "regularization": _eval_reg,
     "minimal_displacement": _eval_md,
     "joint_variable": _eval_jv,
+    "touch": _eval_touch,
+    "link_function": _eval_link_function,
+    "joint_function": _eval_jf,
+    "balance": _eval_balance,
 }

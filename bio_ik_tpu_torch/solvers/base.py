@@ -6,10 +6,12 @@ solution / inject`` set over a state tuple whose tensors carry a leading
 row axis — one row per island of each scenario — which the island path of
 :mod:`bio_ik_tpu_torch.api` steps in lock-step.
 
-The port registers the bio2 family (``solvers/bio2.py``).  The other modes
-the JAX package registers raise ``NotImplementedError`` naming the
-ROADMAP.md port queue item that ports them; any other name raises
-``ValueError``, as in the JAX package.
+The port registers the bio2 family (``solvers/bio2.py``), bio1, the gd and
+jac families and ``test`` (``bio1.py``, ``gd.py``, ``jac.py``,
+``testmode.py``).  The JAX package's other modes (optlib, neural,
+``bio2_memetic_lbfgs``) raise ``NotImplementedError`` naming the ROADMAP.md
+port queue item that ports them; any other name raises ``ValueError``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,7 +101,10 @@ class Solver:
         self.ctx = ctx
         self.config = config
 
-    def init(self, generator: torch.Generator, data):
+    def init(self, generator: torch.Generator, data, randomize):
+        """State of every row.  ``randomize (R,)`` bool: the rows that start
+        from a uniform random configuration instead of the seed (JAX: island
+        0 of each scenario starts from the seed, api.py:273)."""
         raise NotImplementedError
 
     def step(self, state, data):
@@ -122,11 +127,8 @@ _REGISTRY: Dict[str, Callable[[SolverContext, object], Solver]] = {}
 def _pending_modes() -> Dict[str, str]:
     """The JAX package's other modes (bio_ik_tpu/solvers/*.py), each with
     the ROADMAP.md port queue item that ports it."""
-    out = {"bio1": "5b", "test": "5b"}
+    out = {}
     for n in ("", "_2", "_4", "_8"):
-        for stuck in ("", "_r", "_c"):
-            out[f"gd{stuck}{n}"] = "5b"
-        out[f"jac{n}"] = "5b"
         for variant in ("lbfgs", "bfgs", "lbfgsb", "gd", "cgd", "nd", "nm"):
             for r in ("", "_r"):
                 out[f"optlib_{variant}{r}{n}"] = "5c"
@@ -161,7 +163,11 @@ def make_solver(mode: str, ctx: SolverContext, config) -> Solver:
 
 
 def _import_all():
+    from . import bio1 as _bio1  # noqa: F401
     from . import bio2 as _bio2  # noqa: F401
+    from . import gd as _gd  # noqa: F401
+    from . import jac as _jac  # noqa: F401
+    from . import testmode as _testmode  # noqa: F401
 
 
 def solver_names():

@@ -117,9 +117,10 @@ class Bio2Solver(Solver):
         self._gfac = (child % 3).to(dt)[:, None]
 
     # ------------------------------------------------------------------
-    def init(self, generator, data):
+    def init(self, generator, data, randomize=None):
         """All islands start from the seed (reference `if(1)` branch,
-        ik_evolution_2.cpp:155-166)."""
+        ik_evolution_2.cpp:155-166): ``randomize`` is ignored, as in JAX
+        bio2.py:89."""
         p = self.ctx.problem
         seed = data["seed_active"].to(p.amin.dtype)               # (R, V)
         R, V = seed.shape

@@ -129,10 +129,30 @@ non-zero:
                     targets at 64 steps (within 0.1 of the JAX package's)
                     and IKSolver.solve's time on 3, solve / search /
                     solve_until of each bio2
-                    mode and with elite_migration, the other modes raising
-                    with their item, a query's prep / kernel / glue split, the
-                    prep's synchronizing copies and none inside a chunk,
+                    mode, bio1, gd_4, jac and test, and with
+                    elite_migration, the item 5c modes raising, a
+                    query's prep / kernel / glue split, the prep's
+                    synchronizing copies and none inside a chunk,
                     the device's idle share;
+  unfused_modes   — the island path's other solvers through
+                    IKSolver.solve_batch on the JAX package's records:
+                    Table B's 64 PR2 targets (gd_c_4 in float64 at 256
+                    steps, jac_4 at 32) and the suite's UR5 rows at B = 512
+                    (ur5_pose_bio1, ur5_pose_gd4): success against the
+                    JAX anchor − 3·SE (gd4: median error ≤ 3× its
+                    anchor), median and p90 position and rotation error,
+                    ms per step, launches per step and device idle of a
+                    profiled 2-step solve, no hand-written kernel
+                    launched; a
+                    test-mode solve's linearizer errors;
+  island_kinds    — touch (mesh and box), balance, link_function and
+                    joint_function: fitness on the card against the CPU
+                    plain path at 256 configurations (1e-5 relative
+                    beside 1e-9 absolute), an island solve_batch
+                    (bio2_memetic, B = 256, 16 steps) of a PoseGoal
+                    beside each, counter=True on solve_until
+                    (fused and island branches), params.solver_from_spec
+                    building the hand-built problem;
   regularized_main — PoseGoal + MinimalDisplacementGoal(0.05) +
                     AvoidJointLimitsGoal(0.05) on bench_suite's ladder at
                     B = 65 536: the same fields, the median secondary fitness
@@ -341,6 +361,37 @@ SHAPES_BARS = {"arm_lookat": 0.995, "dual_head": 0.99, "free_posori": 0.99,
                "arm_lookat_alone": 0.99, "humanoid_two_hands": 0.995}
 
 
+# unfused_modes: the island path's other solvers on the JAX package's own
+# quality records (the card's machine has no JAX, so the anchors are
+# constants).  Table B (BENCHMARKS.md:157-168): 64 PR2 targets, uniform in
+# the bounds from default_rng(42), neutral seeds, steps_per_check =
+# max_steps, the solver's default islands (tools/parity_rates.py:89-112);
+# rows (name, mode, max_steps, extra config, JAX success and its line).
+TABLE_B_N = 64
+TABLE_B_ROWS = (
+    ("bio1_64", "bio1", 64, {}, 0.563, "BENCHMARKS.md:161"),
+    ("bio1_linear_64", "bio1", 64, {"linear_fitness": True}, 0.188, "BENCHMARKS.md:164"),
+    ("gd_c_4_float64_256", "gd_c_4", 256, {"dtype": "float64"}, 0.828, "BENCHMARKS.md:165"),
+    ("jac_4_32", "jac_4", 32, {}, 0.969, "BENCHMARKS.md:168"),
+)
+# the JAX suite's two unfused rows (tools/bench_suite.py:155-167: UR5, one
+# PoseGoal on tool0, dtwist 1e-3, B = 512 targets uniform in the bounds
+# from default_rng(0), a plain IKSolver): (name, mode, max_steps, JAX
+# success, JAX median position error in m, their line).  ur5_pose_gd4's
+# success bar is vacuous (anchor 0.008), so its median error is held to 3×
+# the anchor's.
+SUITE_N = 512
+SUITE_ROWS = (
+    ("ur5_pose_bio1", "bio1", 32, 0.348, 1.3e-3, "BENCHMARKS.md:32"),
+    ("ur5_pose_gd4", "gd_4", 64, 0.008, 5.3e-2, "BENCHMARKS.md:33"),
+)
+# island_kinds: fitness inputs, and the island solve of a PoseGoal beside
+# each kind (bio2_memetic, default islands)
+KINDS_N = 256
+KINDS_B, KINDS_STEPS = 256, 16
+WRIST = "r_wrist_roll_link"   # its collision geometry: assets/pr2_gripper_tip.stl
+
+
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by")
 # the TPU kernels the megastep and fullstep entries replace (their
@@ -348,6 +399,15 @@ KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 MEGASTEP_TPU = "bio_ik_tpu/kernels/bio2_megastep.py:321"
 FULLSTEP_TPU = "bio_ik_tpu/kernels/bio2_fullstep.py:692"
 SPECIES_TPU = "bio_ik_tpu/kernels/bio2_step.py:461"
+
+
+def _leaves(tree):
+    """The tensors of a nested dict/list, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def emit(obj):
@@ -1313,9 +1373,12 @@ class Smoke:
     # ------------------------------------------------------------- 5b --
     @staticmethod
     def _single_query_modes(m, tg):
-        """``solve``, ``search`` and ``solve_until`` of each bio2 mode on the
-        card (8 steps, the first target), ``elite_migration`` on the island
-        path, and the JAX registry's other modes raising with their item."""
+        """``solve``, ``search`` and ``solve_until`` of each bio2 mode (8
+        steps, two chunks) and of bio1, gd_4, jac and test (4 steps, one
+        chunk: a bio1 step takes ~0.3 s on the card's host) on the card, the
+        first target,
+        ``elite_migration`` on the island path, and the JAX registry's
+        modes still to port (item 5c) raising with their item."""
         import torch
         import bio_ik_tpu_torch.goals as G
         from bio_ik_tpu_torch import IKSolver, SolverConfig
@@ -1324,10 +1387,12 @@ class Smoke:
         seed = m.neutral_q()
         rows = {}
         for mode, migrate in (("bio2", False), ("bio2_memetic", False),
-                              ("bio2_memetic_l", False), ("bio2_memetic", True)):
+                              ("bio2_memetic_l", False), ("bio2_memetic", True),
+                              ("bio1", False), ("gd_4", False), ("jac", False),
+                              ("test", False)):
             s = IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(
-                mode=mode, dtwist=1e-3, max_steps=8, steps_per_check=4,
-                elite_migration=migrate))
+                mode=mode, dtwist=1e-3, max_steps=8 if mode.startswith("bio2") else 4,
+                steps_per_check=4, elite_migration=migrate))
             d = bl._query(s.make_data(seed), tg, 0)
             res = [s.solve(seed, key=[0, 5], data=d),
                    s.search(seed, key=[0, 5], data=d, return_approximate_solution=True),
@@ -1336,8 +1401,7 @@ class Smoke:
                 "engine": s.engine is not None,
                 "success": [bool(r.success) for r in res],
                 "finite": all(bool(torch.isfinite(r.q).all()) for r in res)}
-        for mode in ("bio1", "gd_4", "jac", "test", "optlib_lbfgs", "neural",
-                     "bio2_memetic_lbfgs"):
+        for mode in ("optlib_lbfgs", "neural", "bio2_memetic_lbfgs"):
             try:
                 IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode=mode))
                 rows[mode] = "built"
@@ -1345,7 +1409,7 @@ class Smoke:
                 rows[mode] = str(e)
         bad = {k: v for k, v in rows.items()
                if (isinstance(v, dict) and not v["finite"])
-               or (isinstance(v, str) and not re.search(r"item 5[bc]\)", v))}
+               or (isinstance(v, str) and not re.search(r"item 5c\)", v))}
         if bad:
             raise AssertionError(f"single-query entry points: {bad}")
         return rows
@@ -1772,23 +1836,357 @@ class Smoke:
                                  f"fitness: {out}")
 
     # -------------------------------------------------------------- 8 --
+    # -------------------------------------------------------- unfused --
+    @staticmethod
+    def _kernel_counts():
+        from bio_ik_tpu_torch.kernels.bio2_megastep import Fullstep, Megastep
+        from bio_ik_tpu_torch.kernels.bio2_step import SpeciesKernel
+
+        return (Megastep, Fullstep, SpeciesKernel)
+
+    def _unfused_row(self, m, tip, tg, cfg, name, anchor, src):
+        """One ``IKSolver.solve_batch`` of a PoseGoal on each of ``tg``'s
+        targets (neutral seeds) on the island path: success, median and
+        90th-percentile position error, ms per step (wall clock, the card
+        synchronized); then one solver step of the same rows under the
+        profiler (the island path's ``Solver.step`` on every scenario ×
+        island row, after an ``init`` and a warm-up step): its kernel
+        launches and the device's idle share of its wall time — a profiled
+        solve would add its init, winner and result, and torch.profiler
+        takes ~1 s to gather each ~4 000 device events.  The hand-written
+        kernels' counts, set to 0 just before the timed solve, must read 0
+        after it: the island path launches none."""
+        import numpy as np
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import IKSolver, make_fk
+        from bio_ik_tpu_torch.interop import tree_map
+        from bio_ik_tpu_torch.math.quat import quat_angle_shortest
+
+        B = tg.pos.shape[0]
+        s = IKSolver(m, [G.PoseGoal(link=tip)], cfg)
+        if s.engine is not None or "not a fused bio2 family" not in s.unsupported:
+            raise AssertionError(f"{name}: not on the island path ({s.unsupported})")
+        dt = s.problem.tdtype
+        data = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
+                        s.make_data(torch.as_tensor(m.neutral_q(), device=self.dev)))
+        data["primary"][0]["position"] = tg.pos.to(dt).contiguous()
+        data["primary"][0]["orientation"] = tg.quat.to(dt).contiguous()
+        keys = torch.stack([torch.full((B,), 7), torch.arange(B)], -1).to(self.dev)
+        kinds = self._kernel_counts()
+        for k in kinds:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = s.solve_batch(keys, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel_launches = {k.__name__: k.launches for k in kinds}
+        fk = make_fk(m, [tip])
+        got = fk(res.q)
+        err = (got.pos - tg.pos.to(res.q.dtype))[:, 0].norm(dim=-1).cpu().numpy()
+        rot = quat_angle_shortest(got.quat, tg.quat.to(res.q.dtype))[:, 0].cpu().numpy()
+        sp = IKSolver(m, [G.PoseGoal(link=tip)], cfg.replace(max_steps=1,
+                                                             steps_per_check=1))
+        t1 = time.perf_counter()
+        state, _, data_r = sp._init_islands(keys, data)
+        state = sp.solver.step(state, data_r)
+        step = self._profile_call(lambda: sp.solver.step(state, data_r), warm=False)
+        profile_s = time.perf_counter() - t1
+        n = B
+        se = float(np.sqrt(anchor * (1 - anchor) / n))
+        return {"row": name, "mode": cfg.mode, "dtype": str(res.q.dtype).split(".")[-1],
+                "islands": s.islands, "max_steps": cfg.max_steps, "n": n,
+                "success_rate": float(res.success.float().mean()),
+                "median_pos_err_m": float(np.median(err)),
+                "p90_pos_err_m": float(np.percentile(err, 90)),
+                "median_rot_err_rad": float(np.median(rot)),
+                "p90_rot_err_rad": float(np.percentile(rot, 90)),
+                "ms_per_step": wall * 1e3 / cfg.max_steps, "solve_batch_ms": wall * 1e3,
+                "launches_per_step": step["device_launches"],
+                "device_idle_share": step["device_idle_share"],
+                "profiled_ms_per_step": step["wall_ms"],
+                "kernel_launches": kernel_launches, "profile_seconds": profile_s,
+                "jax_success": anchor, "jax_source": src,
+                "success_bar": anchor - 3 * se}
+
+    def unfused_modes(self):
+        """The island path's other solvers on the card through
+        ``IKSolver.solve_batch`` (item 5b), on the JAX package's records:
+        Table B's 64 PR2 targets (TABLE_B_ROWS: bio1, bio1 with
+        linear_fitness, gd_c_4 in float64, jac_4) and the suite's UR5 rows
+        at B = 512 (SUITE_ROWS); each row's success ≥ its JAX anchor − 3·SE
+        (SE = √(p(1−p)/n)), ur5_pose_gd4's median position error ≤ 3× its
+        anchor; bio1's rotation distance 0.5 mrad from the Table B targets
+        within 2e-5 rad; and a ``test``-mode solve whose linearizer errors
+        are finite and below 1e-2 m and 1e-2 rad."""
+        import numpy as np
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import IKSolver, RobotModel, SolverConfig, asset_path, make_fk
+        from bio_ik_tpu_torch.interop import tree_map
+
+        out = {"phase": "unfused_modes", "gpu": smi_line(), "rows": []}
+        m = self.model
+        b = m._np_bounds
+        qg = np.random.default_rng(42).uniform(b["min"], b["max"], (TABLE_B_N, m.nvars))
+        tg = tg_b = make_fk(m, [TIP])(torch.as_tensor(qg.astype(np.float32),
+                                                      device=self.dev))
+        for name, mode, steps, extra, anchor, src in TABLE_B_ROWS:
+            cfg = SolverConfig(mode=mode, dtwist=1e-3, max_steps=steps,
+                               steps_per_check=steps, **extra)
+            out["rows"].append(self._unfused_row(m, TIP, tg, cfg, name, anchor, src))
+        ur5 = RobotModel.from_urdf_file(asset_path("ur5.urdf"))
+        b = ur5._np_bounds
+        qg = np.random.default_rng(0).uniform(b["min"], b["max"], (SUITE_N, ur5.nvars))
+        tg = make_fk(ur5, ["tool0"])(torch.as_tensor(qg.astype(np.float32), device=self.dev))
+        for name, mode, steps, anchor, err_anchor, src in SUITE_ROWS:
+            row = self._unfused_row(ur5, "tool0", tg, SolverConfig(
+                mode=mode, dtwist=1e-3, max_steps=steps), name, anchor, src)
+            row["jax_median_pos_err_m"] = err_anchor
+            out["rows"].append(row)
+
+        # bio1's rotation distance on the card 0.5 mrad from Table B's
+        # targets, whose FK quaternions' norms exceed 1 by ~1e-7 here: the
+        # JAX package's clamped arccos reads most of them as 0
+        from bio_ik_tpu_torch.math.frame import Frame
+        from bio_ik_tpu_torch.math.quat import (quat_angle_shortest, quat_from_axis_angle,
+                                                quat_mul)
+
+        sb = IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode="bio1", dtwist=1e-3,
+                                                             linear_fitness=True))
+        d = tree_map(lambda x: x.expand((TABLE_B_N,) + x.shape).contiguous(),
+                     sb.make_data(torch.as_tensor(m.neutral_q(), device=self.dev)))
+        d["primary"][0]["position"], d["primary"][0]["orientation"] = tg_b.pos, tg_b.quat
+        axis = torch.as_tensor(np.random.default_rng(9).normal(size=(TABLE_B_N, 3)),
+                               dtype=torch.float32, device=self.dev)
+        axis = axis / axis.norm(dim=-1, keepdim=True)
+        theta = torch.full((TABLE_B_N,), 5e-4, device=self.dev)
+        tq = quat_mul(tg_b.quat[:, 0], quat_from_axis_angle(axis, theta))[:, None]
+        rot = sb.solver._distances(Frame(tg_b.pos, tq), d)[1][:, 0]
+        out["bio1_small_angle"] = {
+            "angle_rad": 5e-4, "max_abs_err_rad": float((rot - theta).abs().max()),
+            "arccos_zero_frac": float((quat_angle_shortest(tq, tg_b.quat)[:, 0] == 0)
+                                      .float().mean())}
+
+        # test mode: the linearizer against exact FK about the seed
+        s = IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode="test", max_steps=1))
+        d = tree_map(lambda x: x[None], s.make_data(torch.as_tensor(m.neutral_q(),
+                                                                    device=self.dev)))
+        st, _, _ = s._init_islands(torch.tensor([[0, 3]], device=self.dev), d)
+        res = s.solve(m.neutral_q())
+        out["test_mode"] = {"pos_err_m": float(st.pos_err[0]), "rot_err_rad": float(st.rot_err[0]),
+                            "solve_finite": bool(torch.isfinite(res.q).all())}
+        emit(out)
+        bad = []
+        for r in out["rows"]:
+            if r["row"] == "ur5_pose_gd4":
+                ok = r["median_pos_err_m"] <= 3 * r["jax_median_pos_err_m"]
+            else:
+                ok = r["success_rate"] >= r["success_bar"]
+            if not ok or any(r["kernel_launches"].values()) or not np.isfinite(
+                    r["median_pos_err_m"]):
+                bad.append(r["row"])
+        tm = out["test_mode"]
+        if not (tm["solve_finite"] and 0 < tm["pos_err_m"] < 1e-2
+                and 0 < tm["rot_err_rad"] < 1e-2):
+            bad.append("test")
+        if not out["bio1_small_angle"]["max_abs_err_rad"] <= 2e-5:
+            bad.append("bio1_small_angle")
+        if bad:
+            raise AssertionError(f"unfused modes below their bars: {bad}")
+
+    def island_kinds(self):
+        """The four goal kinds only the island path evaluates (item 5d) on the
+        card: each kind's fitness at KINDS_N configurations against the
+        port's plain path on the CPU on the same tip frames, within 1e-5
+        relative beside 1e-9 absolute (touch on the fingertip mesh and on
+        the tool frame's box, balance on the PR2 arm's inertials, the
+        function goals written in torch); an island ``solve_batch``
+        (bio2_memetic, B = KINDS_B, KINDS_STEPS steps) of a PoseGoal beside
+        each kind, the touch planes and the balance target placed where the
+        target configuration meets them, its fitness below a tenth of the
+        seed's; ``counter=True`` on ``solve_until`` (fused and island
+        branches: the recorded steps equal ``last_steps``); and
+        ``params.solver_from_spec`` building the hand-built problem leaf for
+        leaf (item 6)."""
+        import numpy as np
+        import torch
+        import bio_ik_tpu_torch.goals as G
+        from bio_ik_tpu_torch import IKSolver, Problem, SolverConfig, make_fk, params
+        from bio_ik_tpu_torch.interop import tree_map
+        from bio_ik_tpu_torch.math.quat import quat_rotate
+        from bio_ik_tpu_torch.problem import _EVALUATORS
+
+        m, mc = self.model, self.cpu_model
+
+        def floor_fn(p, q):
+            # keep the tool frame above the table plane z = 0.2
+            return torch.clamp(p[..., 2] - 0.2, max=0.0) ** 2 + 0.0 * q[..., 3]
+
+        def range_fn(v):
+            # prefer the shoulder pan and the elbow flex inside [-1, 0.3]
+            return torch.clamp(v, -1.0, 0.3)
+
+        def kinds():
+            return {
+                "touch_mesh": G.TouchGoal(link=WRIST, position=(0.0, 0.0, 0.2),
+                                          normal=(0.0, 0.0, 1.0), weight=0.5),
+                "touch_box": G.TouchGoal(link=TIP, position=(0.0, 0.0, 0.2),
+                                         normal=(0.0, 0.0, 1.0), weight=0.5),
+                "balance": G.BalanceGoal(target=(0.1, 0.0, 0.0), axis=(0.0, 0.0, 1.0),
+                                         weight=0.5),
+                "link_function": G.LinkFunctionGoal(link=TIP, function=floor_fn),
+                "joint_function": G.JointFunctionGoal(
+                    variable_names=("r_shoulder_pan_joint", "r_elbow_flex_joint"),
+                    function=range_fn, weight=0.5)}
+
+        out = {"phase": "island_kinds", "gpu": smi_line(), "fitness": {}, "solve": {}}
+        b = m._np_bounds
+        rng = np.random.default_rng(5)
+        qs = rng.uniform(b["min"], b["max"], (KINDS_N, m.nvars)).astype(np.float32)
+        bad = []
+        # the tip frames from the CPU's FK, the same inputs on both sides
+        tips_cpu = {}
+        for name, goal in kinds().items():
+            vals = []
+            for model, dev in ((mc, "cpu"), (m, self.dev)):
+                p = Problem(model, [G.PoseGoal(link=TIP), goal],
+                            config=SolverConfig(dtwist=1e-3))
+                if name not in tips_cpu:
+                    t = make_fk(model, p.tip_links)(torch.as_tensor(qs))
+                    tips_cpu[name] = torch.cat([t.pos, t.quat], -1)
+                q = torch.as_tensor(qs, device=dev)
+                packed = tips_cpu[name].to(dev)
+                d = p.make_data(torch.as_tensor(model.neutral_q(), device=dev))
+                grp, gdata = p.primary[1], d["primary"][1]
+                e = _EVALUATORS[grp.kind](p, grp, gdata, packed, q, d)
+                vals.append((gdata["weight_sq"] * e).sum(-1).double().cpu().numpy())
+            cpu, card = vals
+            err = np.abs(card - cpu)
+            # 1e-5 relative; beside it 1e-9 (m², rad²) absolute: a squared
+            # distance d² moves by 2·d·ε under the float32 rounding ε ~ 1e-7
+            # of O(1 m) terms (FMA contraction on the card), which exceeds
+            # 1e-5·d² for d below 2 cm
+            ok = bool(np.all(err <= 1e-5 * np.abs(cpu) + 1e-9))
+            out["fitness"][name] = {
+                "max_abs_err": float(err.max()),
+                "max_rel_err": float(np.max(err / np.maximum(np.abs(cpu), 1e-30))),
+                "max_rel_err_above_1e-4": float(np.max(np.where(
+                    np.abs(cpu) >= 1e-4, err / np.maximum(np.abs(cpu), 1e-30), 0.0))),
+                "nonzero_frac": float((cpu > 0).mean()), "within_limit": ok}
+            if not ok or not (cpu > 0).any():
+                bad.append(f"fitness {name}")
+
+        # an island solve of a PoseGoal beside each kind: targets at FK of q*,
+        # the touch planes and the balance target per scenario at q*
+        B = KINDS_B
+        qt = rng.uniform(b["min"] * 0.5, b["max"] * 0.5, (B, m.nvars)).astype(np.float32)
+        qt = torch.as_tensor(qt, device=self.dev)
+        for name, goal in kinds().items():
+            s = IKSolver(m, [G.PoseGoal(link=TIP), goal], SolverConfig(
+                mode="bio2_memetic", dtwist=1e-3, max_steps=KINDS_STEPS,
+                steps_per_check=KINDS_STEPS))
+            if s.engine is not None:
+                raise AssertionError(f"{name}: the fused engine took a kind it lacks")
+            d = tree_map(lambda x: x.expand((B,) + x.shape).contiguous(),
+                         s.make_data(torch.as_tensor(m.neutral_q(), device=self.dev)))
+            tips = make_fk(m, s.problem.tip_links)(qt)
+            d["primary"][0]["position"] = tips.pos[:, :1].contiguous()
+            d["primary"][0]["orientation"] = tips.quat[:, :1].contiguous()
+            g1, gd1 = s.problem.primary[1], d["primary"][1]
+            packed = torch.cat([tips.pos, tips.quat], -1)
+            if g1.kind == "touch":
+                # the plane through the surface's deepest point at q*
+                slot = int(g1.tip_slots[0])
+                world = tips.pos[:, slot, None] + quat_rotate(tips.quat[:, slot, None],
+                                                              gd1["points"][:, 0])
+                gd1["position"] = world[torch.arange(B), world[..., 2].argmin(-1)][:, None]
+            if g1.kind == "balance":
+                coms = g1.index("coms", self.dev).float()
+                mass = g1.index("mass_frac", self.dev).float()
+                sl = g1.index("tip_slots", self.dev)
+                com = ((tips.pos[:, sl] + quat_rotate(tips.quat[:, sl], coms))
+                       * mass[:, None]).sum(-2)
+                gd1["target"] = com[:, None].contiguous()
+            e_star = _EVALUATORS[g1.kind](s.problem, g1, gd1, packed, qt, d)
+            keys = torch.stack([torch.zeros(B), torch.arange(B)], -1).long().to(self.dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = s.solve_batch(keys, d)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            f0 = s.ctx.fitness_exact(d["seed_active"], d)
+            f1 = s.ctx.fitness_exact(res.qa, d)
+            err = (make_fk(m, [TIP])(res.q).pos - tips.pos[:, :1])[:, 0].norm(dim=-1)
+            out["solve"][name] = {
+                "success_rate": float(res.success.float().mean()),
+                "median_pos_err_m": float(err.median()),
+                "extra_goal_error_at_target_max": float(e_star.max()),
+                "median_fitness_seed": float(f0.median()),
+                "median_fitness_solution": float(f1.median()),
+                "ms_per_step": wall * 1e3 / KINDS_STEPS}
+            if not (torch.isfinite(res.q).all() and (f1 <= f0).all()
+                    and float(f1.median()) < 0.1 * float(f0.median())):
+                bad.append(f"solve {name}")
+
+        # counter=True on solve_until: the fused branch and the island one
+        tg = make_fk(m, [TIP])(qt[:1])
+        for mode in ("bio2_memetic", "jac"):
+            s = IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(
+                mode=mode, dtwist=1e-3, counter=True, max_steps=64, steps_per_check=4))
+            d = s.make_data(torch.as_tensor(m.neutral_q(), device=self.dev))
+            d["primary"][0]["position"], d["primary"][0]["orientation"] = tg.pos[0], tg.quat[0]
+            r = s.solve_until(m.neutral_q(), key=[0, 9], data=d)
+            sm = s.stats.summary()
+            out[f"counter_{mode}"] = {"fused": s.engine is not None, "last_steps": s.last_steps,
+                                      "stats": sm, "success": bool(r.success)}
+            if s.stats.steps != s.last_steps or sm["batches"] != 1:
+                bad.append(f"counter {mode}")
+
+        # params: a spec dict builds the hand-built problem
+        spec = {"mode": "bio2_memetic", "dtwist": 1e-3, "threads": 2, "goals": [
+            {"type": "pose", "link": TIP, "position": {"x": 0.5, "y": -0.2, "z": 0.6}},
+            {"type": "touch", "link": WRIST, "position": [0, 0, 0.2], "normal": [0, 0, 1]},
+            {"type": "avoid_joint_limits", "weight": 0.05}]}
+        ps = params.solver_from_spec(m, spec)
+        hand = IKSolver(m, [G.PoseGoal(link=TIP, position=(0.5, -0.2, 0.6)),
+                            G.TouchGoal(link=WRIST, position=(0.0, 0.0, 0.2)),
+                            G.AvoidJointLimitsGoal(weight=0.05)],
+                        SolverConfig(mode="bio2_memetic", dtwist=1e-3, islands=2))
+        la = [x for x in _leaves(ps.make_data(m.neutral_q()))]
+        lb = [x for x in _leaves(hand.make_data(m.neutral_q()))]
+        same = (ps.config == hand.config and len(la) == len(lb)
+                and all(x.device.type == self.dev.type and torch.equal(x, y)
+                        for x, y in zip(la, lb))
+                and [g.kind for g in ps.problem.primary + ps.problem.secondary]
+                == [g.kind for g in hand.problem.primary + hand.problem.secondary])
+        out["params_same_problem"] = bool(same)
+        if not same:
+            bad.append("params")
+        emit(out)
+        if bad:
+            raise AssertionError(f"island_kinds: {bad}")
+
     @staticmethod
     def _profile(s, data, keys):
         """torch.profiler over one warm solve_batch (:meth:`_profile_call`)."""
         return Smoke._profile_call(lambda: s.solve_batch(keys, data))
 
     @staticmethod
-    def _profile_call(fn):
-        """torch.profiler over one warm call of ``fn``: device time by kernel
-        name and the device's busy share of the host-clock wall time.  It
-        records the device's activity only: the host-side operator events
-        of a species path (~10⁵ a solve_batch) took tens of seconds to
-        gather and were not read."""
+    def _profile_call(fn, warm=True):
+        """torch.profiler over one call of ``fn``, after a warm-up call
+        unless the caller has just made one (``warm=False``): device time by
+        kernel name and the device's busy share of the host-clock wall time.
+        It records the device's activity only: the host-side operator
+        events of a species path (~10⁵ a solve_batch) took tens of seconds
+        to gather and were not read."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1809,7 +2207,7 @@ class Smoke:
         rng = [e for e in ev if "distribution" in e.key or "philox" in e.key.lower()]
         return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
                 "device_idle_share": 1.0 - busy_us / wall_us,
-                "device_ops": len(ev),
+                "device_ops": len(ev), "device_launches": sum(e.count for e in ev),
                 "torch_rng_kernels": sum(e.count for e in rng),
                 "torch_rng_ms": sum(dev_us(e) for e in rng) / 1e3,
                 "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
@@ -2893,6 +3291,7 @@ def main():
     ap.add_argument("--only", default="build,check,rng,sec_check,fullstep_check,"
                     "shapes_check,latency_check,main,regularized_main,dual_main,"
                     "multigoal_main,snake_main,humanoid_main,shapes_main,latency,"
+                    "unfused_modes,island_kinds,"
                     "species_check,species_main,species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     args = ap.parse_args()

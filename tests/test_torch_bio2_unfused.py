@@ -6,8 +6,10 @@
 solvers/bio2.py:114-123, :146, :255-307) — and held to the JAX solver's
 outputs on the same inputs: ``_reproduce`` within 1e-6, ``step`` within
 1e-5.  The memetic gradient (torch.autograd against ``jax.grad``) within
-1e-5 for every goal kind the island path meets.  ``_memetic`` within 1e-5
-in float64 on both sides: its quadratic step divides a second difference
+1e-5 for every goal kind the island path meets, the four only it
+evaluates (touch, balance, link_function, joint_function) among them.
+``_memetic`` within 1e-5 in float64 on both sides: its quadratic step
+divides a second difference
 of three nearly equal fitness values, which in float32 carries the two
 packages' last-bit differences in the approximate fitness (≤ 2e-6
 relative, the einsum's order) up to 1e-4 in the genes on half the rows.
@@ -104,12 +106,17 @@ def _lin(ts, td, x0):
 
 
 def test_registry_names_are_jax_names():
-    """The port registers the bio2 family; with the modes it names as
-    pending, that is exactly the JAX package's registry."""
+    """The port registers the bio2 family, bio1, the 12 gd and 4 jac names
+    and test; with the modes it names as pending (item 5c), that is exactly
+    the JAX package's registry."""
     jn = set(j_solver_names())
-    assert set(solver_names()) == {"bio2", "bio2_memetic", "bio2_memetic_l"}
-    assert set(solver_names()) <= jn
+    gd = {f"gd{s}{n}" for s in ("", "_r", "_c") for n in ("", "_2", "_4", "_8")}
+    jac = {f"jac{n}" for n in ("", "_2", "_4", "_8")}
+    assert set(solver_names()) == ({"bio2", "bio2_memetic", "bio2_memetic_l", "bio1",
+                                    "test"} | gd | jac)
+    assert set(solver_names()) <= jn and not set(solver_names()) & set(_PENDING)
     assert set(solver_names()) | set(_PENDING) == jn
+    assert set(_PENDING.values()) == {"5c"}
 
 
 @pytest.mark.parametrize("mode,item", [
@@ -117,7 +124,16 @@ def test_registry_names_are_jax_names():
     ("optlib_lbfgs", "5c"), ("optlib_nm_r_4", "5c"), ("neural2", "5c"),
     ("bio2_memetic_lbfgs", "5c")])
 def test_pending_modes_name_their_item(mode, item):
+    """The item 5c modes raise naming their item; the item 5b modes, ported
+    now, build and run one step of one query."""
     m = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
+    if item == "5b":
+        s = IKSolver(m, [G.PoseGoal(link=TIP)],
+                     SolverConfig(mode=mode, max_steps=1, steps_per_check=1))
+        assert s.engine is None
+        res = s.solve(torch.as_tensor(m.neutral_q()), key=[0, 3])
+        assert res.q.shape == (m.nvars,) and torch.isfinite(res.q).all()
+        return
     with pytest.raises(NotImplementedError, match=f"port queue item {item}\\)"):
         IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode=mode))
 
@@ -219,7 +235,21 @@ _KIND_GOALS = {
                                            direction=(1.0, 0.0, 0.0)),
     "cone": lambda M: M.ConeGoal(link=TIP, axis=(0.0, 0.0, 1.0), direction=(1.0, 0.0, 0.0),
                                  angle=0.3, position=(0.5, -0.2, 0.6), position_weight=0.5),
+    # the kinds only the island path evaluates; the function goals in the
+    # goals module's own tensor library
+    "touch": lambda M: M.TouchGoal(link="r_wrist_roll_link", position=(0.5, -0.2, 0.6),
+                                   normal=(0.0, 0.3, 1.0)),
+    "balance": lambda M: M.BalanceGoal(target=(0.2, -0.1, 0.0), axis=(0.0, 0.1, 1.0)),
+    "link_function": lambda M: M.LinkFunctionGoal(link=TIP, function=_link_fn(M)),
+    "joint_function": lambda M: M.JointFunctionGoal(
+        variable_names=("r_shoulder_pan_joint", "r_elbow_flex_joint"),
+        function=lambda v: 0.5 * (v + 0.3)),
 }
+
+
+def _link_fn(M):
+    xp, s = (jnp, {"axis": -1}) if M is JG else (torch, {"dim": -1})
+    return lambda p, q: xp.sum((p - 0.4) * p, **s) + 0.1 * q[..., 0] * q[..., 3]
 
 
 @pytest.fixture(scope="module")

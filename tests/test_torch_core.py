@@ -202,11 +202,12 @@ def test_orientation_twist_acceptance():
 
 
 def test_non_pose_goal_kinds_raise():
-    """The kinds only the unfused solvers evaluate (touch here) raise,
-    naming their ROADMAP item; the fused step's kinds build."""
+    """The kinds only the unfused solvers evaluate (touch here) build, with
+    the acceptance type of a non-pose goal; the fused step's kinds build."""
     t_m = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
-    with pytest.raises(NotImplementedError, match="port queue item 5"):
-        Problem(t_m, [G.TouchGoal(link=TIP)])
+    grp = Problem(t_m, [G.TouchGoal(link=TIP)]).primary[0]
+    assert (grp.kind, grp.goal_type) == ("touch", "unknown")
+    assert grp.params["points"].shape == (1, 8, 3)         # the tool frame's box
     assert Problem(t_m, [G.LookAtGoal(link=TIP)]).primary[0].kind == "lookat"
 
 

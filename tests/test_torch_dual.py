@@ -195,14 +195,23 @@ def test_card_takes_the_dual_paths_and_names_the_gaps(dual):
     assert s.engine is None and "fullstep kernel" in s.unsupported
 
 
-def test_counter_names_its_roadmap_item(dual):
-    """``SolverConfig(counter=True)`` asks for per-solve statistics
-    (JAX ``IKSolver.stats``, a ``SolveStats``): the port raises until
-    ROADMAP item 6 ports them."""
-    with pytest.raises(NotImplementedError, match="port queue item 6"):
-        IKSolver(dual, [G.PoseGoal(link=R)], SolverConfig(counter=True))
-    with pytest.raises(NotImplementedError, match="port queue item 6"):
-        AdaptiveBatchSolver(dual, [G.PoseGoal(link=R)], SolverConfig(counter=True))
+def test_counter_names_its_roadmap_item(dual, caplog):
+    """``SolverConfig(counter=True)`` records per-solve statistics in
+    ``IKSolver.stats``, a ``SolveStats``, and logs each query's steps (JAX
+    api.py:209-217, :379-387); every phase of an ``AdaptiveBatchSolver``
+    records its own, as in the JAX package."""
+    import logging
+
+    s = IKSolver(dual, [G.PoseGoal(link=R)],
+                 SolverConfig(counter=True, max_steps=1, islands=1, fused="off"))
+    assert IKSolver(dual, [G.PoseGoal(link=R)]).stats is None
+    with caplog.at_level(logging.INFO, logger="bio_ik_tpu_torch"):
+        s.solve(torch.as_tensor(dual.neutral_q()))
+    assert "ik solve: 1 steps x 1 islands" in caplog.text
+    sm = s.stats.summary()
+    assert (sm["queries"], sm["batches"], sm["mean_steps_per_call"]) == (1, 1, 1.0)
+    a = AdaptiveBatchSolver(dual, [G.PoseGoal(link=R)], SolverConfig(counter=True))
+    assert all(p.stats is not None and p.stats.queries == 0 for p in a.solvers)
 
 
 def test_port_bench_prints_bench_py_keys(monkeypatch):
