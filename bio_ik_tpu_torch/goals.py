@@ -192,7 +192,9 @@ class ConeGoal(Goal):
 @dataclass(frozen=True)
 class LinkFunctionGoal(Goal):
     """User function ``f(pos (3,), quat (4,)) → squared error``, must be
-    written in torch ops (reference: goal_types.h:570-583)."""
+    written in torch ops (reference: goal_types.h:570-583).  The solvers
+    that replay CUDA graphs run it inside one, so on the card it must not
+    copy from the host: build its constant tensors once, outside it."""
 
     link: str = ""
     function: Optional[Callable] = None
@@ -247,6 +249,7 @@ class JointFunctionGoal(Goal):
     """User function mapping selected variable values to preferred values:
     ``Σ (f(q)−q)²``; ``function`` must be written in torch ops ``(k,) → (k,)``
     (reference: goal_types.h:501-538, where f mutates the vector in place).
+    On the card it must not copy from the host, as ``LinkFunctionGoal``'s.
     """
 
     variable_names: Tuple[str, ...] = ()

@@ -151,25 +151,48 @@ def _finish(name: str, proc, tmp: str, out: str, log: str) -> None:
 BUILD_SECONDS: Dict[str, float] = {}
 
 
+# sources being built by some thread of this process: name -> its Event
+_building: Dict[str, threading.Event] = {}
+_building_lock = threading.Lock()
+
+
 def build_all(names: Sequence[str]) -> float:
     """Build every named source (a file of ``csrc/`` or a generated name)
     not yet built, one ``nvcc`` each, all started together; returns the
-    wall seconds (each source's own in :data:`BUILD_SECONDS`)."""
+    wall seconds (each source's own in :data:`BUILD_SECONDS`).  A source
+    that another thread is building is waited for, not built twice, so a
+    build started in the background serves the first use of its kernels."""
     t0 = time.perf_counter()
-    jobs = [(n, *_start(n)) for n in names if not os.path.exists(_target(n))]
-    logs = {}
+    with _building_lock:
+        mine = [n for n in dict.fromkeys(names)
+                if n not in _building and not os.path.exists(_target(n))]
+        theirs = [_building[n] for n in dict.fromkeys(names) if n in _building]
+        for n in mine:
+            _building[n] = threading.Event()
+    try:
+        jobs = [(n, *_start(n)) for n in mine]
+        logs = {}
 
-    def drain(name, proc):
-        logs[name] = proc.communicate()[0]
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+        def drain(name, proc):
+            logs[name] = proc.communicate()[0]
+            BUILD_SECONDS[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=drain, args=job[:2]) for job in jobs]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for job in jobs:
-        _finish(*job, logs[job[0]])
+        threads = [threading.Thread(target=drain, args=job[:2]) for job in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for job in jobs:
+            _finish(*job, logs[job[0]])
+    finally:
+        with _building_lock:
+            for n in mine:
+                _building.pop(n).set()
+    for event in theirs:
+        event.wait()
+    missing = [n for n in names if not os.path.exists(_target(n))]
+    if missing:
+        raise RuntimeError(f"the build of {missing} failed in another thread")
     return time.perf_counter() - t0
 
 

@@ -13,6 +13,8 @@ per lane, each lane's whole state within a tolerance.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
@@ -24,6 +26,33 @@ __all__ = ["megastep_inputs", "species_inputs", "sec_rows", "lane_agreement",
 # move the tip by ~1e-3 m and ~3e-3 rad, so the relu kinds' terms act on
 # ≥ 99.8 % of the parents of pr2_arm
 MISS = (0.002, 0.01)
+
+# draws of the input makers already made in this process: (the generator's
+# state before, what was drawn) -> (arrays, the generator's state after).
+# A check that makes one launch's inputs for several goal kinds, or for
+# both randomness modes, draws its lanes and noise once (tens of seconds at
+# a million lanes); each call gets its own copies, equal to a fresh draw
+_DRAWN: "OrderedDict[tuple, tuple]" = OrderedDict()
+DRAWN_BYTES = 12 << 30
+
+
+def _drawn(rng, what, make):
+    """``make()``'s arrays, drawn from ``rng``, remembered by ``rng``'s
+    state and ``what`` (a hashable description of everything else the
+    draw depends on): a repeat returns copies of the same arrays and
+    leaves ``rng`` where ``make()`` would have."""
+    key = (repr(rng.bit_generator.state), what)
+    hit = _DRAWN.get(key)
+    if hit is None:
+        hit = _DRAWN[key] = (tuple(make()), rng.bit_generator.state)
+        while len(_DRAWN) > 1 and sum(a.nbytes for arrays, _ in _DRAWN.values()
+                                      for a in arrays) > DRAWN_BYTES:
+            _DRAWN.popitem(last=False)
+    else:
+        _DRAWN.move_to_end(key)
+        rng.bit_generator.state = hit[1]
+    return tuple(a.copy() for a in hit[0])
+
 
 # the problems of the high-DOF megastep instances, the JAX suite's
 # snake32_position and humanoid_whole_body rows (tools/bench_suite.py:
@@ -163,15 +192,22 @@ def megastep_inputs(model, tip, sp, n_steps: int, N: int, seed: int = 7,
     rng = np.random.default_rng(seed)
     f32 = np.float32
     b = model._np_bounds
-    # one target per species pair: the two lanes of an island share it
-    qstar = np.repeat(rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V)),
-                      2, axis=0)[:N].astype(f32)
-    tg = make_fk(model, tips, device="cpu")(torch.from_numpy(qstar))
-    goal = [_kind_rows(kd, tg.pos[:, t].numpy(), tg.quat[:, t].numpy(), miss)
+
+    def lanes():
+        # one target per species pair: the two lanes of an island share it
+        qstar = np.repeat(rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V)),
+                          2, axis=0)[:N].astype(f32)
+        tg = make_fk(model, tips, device="cpu")(torch.from_numpy(qstar))
+        genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
+        genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
+                        np.tile(b["clip_max"], 2)[:, None]).astype(f32)
+        return (tg.pos.numpy(), tg.quat.numpy(), genes,
+                (rng.normal(size=(2 * V, N)) * 0.01).astype(f32))
+
+    tpos, tquat, genes, velocity = _drawn(rng, ("megastep", model, tuple(tips), N, spread),
+                                          lanes)
+    goal = [_kind_rows(kd, tpos[:, t], tquat[:, t], miss)
             for kd, t in zip(inst_kind, inst_tip)]
-    genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
-    genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
-                    np.tile(b["clip_max"], 2)[:, None]).astype(f32)
 
     def rows(x):
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
@@ -182,7 +218,7 @@ def megastep_inputs(model, tip, sp, n_steps: int, N: int, seed: int = 7,
 
     state = (
         genes,
-        (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
+        velocity,
         np.full((1, N), np.inf, f32),                       # sfit
         genes[:V].copy(),                                   # sol
         np.full((1, N), 1e30, f32),                         # sol_fit
@@ -199,13 +235,14 @@ def megastep_inputs(model, tip, sp, n_steps: int, N: int, seed: int = 7,
     noise = None
     sg = n_steps * sp.gens
     if with_noise:
-        k = rng.integers(0, 16, size=(sg, sp.C, N))
-        noise = (
-            rng.normal(size=(sg, V, sp.C, N)).astype(f32),
-            np.exp2(k - 23.0).astype(f32),
-            rng.uniform(size=(n_steps, 1, N)).astype(f32),
-            rng.uniform(size=(n_steps, V, N)).astype(f32),
-        )
+        def draw():
+            k = rng.integers(0, 16, size=(sg, sp.C, N))
+            return (rng.normal(size=(sg, V, sp.C, N)).astype(f32),
+                    np.exp2(k - 23.0).astype(f32),
+                    rng.uniform(size=(n_steps, 1, N)).astype(f32),
+                    rng.uniform(size=(n_steps, V, N)).astype(f32))
+
+        noise = _drawn(rng, ("megastep noise", sg, V, sp.C, n_steps, N), draw)
     if sec_terms:
         consts += (sec_rows(model, sec_terms, N, rng),)
         if with_noise:
@@ -246,21 +283,27 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
     rng = np.random.default_rng(seed)
     f32 = np.float32
     b = model._np_bounds
-    qstar = rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V))
-    for s in sp.quat_slices:
-        qstar[:, s:s + 4] /= np.linalg.norm(qstar[:, s:s + 4], axis=1,
-                                            keepdims=True)
-    qstar = np.repeat(qstar, 2, axis=0)[:N].astype(f32)
-    tg = make_fk(model, [tip], device="cpu")(torch.from_numpy(qstar))
-    genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
-    genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
-                    np.tile(b["clip_max"], 2)[:, None]).astype(f32)
-    tips0, deltas = make_linearizer(model, [tip], list(range(V)))(
-        torch.from_numpy(np.ascontiguousarray(genes[:V].T)))
+
+    def lanes():
+        qstar = rng.uniform(b["min"], b["max"], size=((N + 1) // 2, V))
+        for s in sp.quat_slices:
+            qstar[:, s:s + 4] /= np.linalg.norm(qstar[:, s:s + 4], axis=1,
+                                                keepdims=True)
+        qstar = np.repeat(qstar, 2, axis=0)[:N].astype(f32)
+        tg = make_fk(model, [tip], device="cpu")(torch.from_numpy(qstar))
+        genes = np.tile(qstar.T, (2, 1)) + rng.normal(size=(2 * V, N)) * spread
+        genes = np.clip(genes, np.tile(b["clip_min"], 2)[:, None],
+                        np.tile(b["clip_max"], 2)[:, None]).astype(f32)
+        tips0, deltas = make_linearizer(model, [tip], list(range(V)))(
+            torch.from_numpy(np.ascontiguousarray(genes[:V].T)))
+        return (tg.pos[:, 0].numpy(), tg.quat[:, 0].numpy(), genes, tips0[:, 0].numpy(),
+                deltas[:, 0].numpy(), (rng.normal(size=(2 * V, N)) * 0.01).astype(f32))
+
+    tpos, tquat, genes, tips0, deltas, velocity = _drawn(
+        rng, ("species", model, tip, N, tuple(sp.quat_slices), spread), lanes)
     # (N, T=1, V, 7) → rows v·K·7 + k·7 + d, every instance on the tip
-    deltas = np.tile(deltas[:, 0].numpy()[:, :, None], (1, 1, K, 1)).reshape(N, V * K * 7).T
-    goal = [_kind_rows(kd, tg.pos[:, 0].numpy(), tg.quat[:, 0].numpy())
-            for kd in inst_kind]
+    deltas = np.tile(deltas[:, :, None], (1, 1, K, 1)).reshape(N, V * K * 7).T
+    goal = [_kind_rows(kd, tpos, tquat) for kd in inst_kind]
 
     def rows(x):
         return np.ascontiguousarray(np.tile(x.astype(f32)[:, None], (1, N)))
@@ -271,8 +314,8 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
 
     args = (
         genes,
-        (rng.normal(size=(2 * V, N)) * 0.01).astype(f32),
-        np.ascontiguousarray(np.tile(tips0[:, 0].numpy().T, (K, 1))),
+        velocity,
+        np.ascontiguousarray(np.tile(tips0.T, (K, 1))),
         np.ascontiguousarray(deltas),
         stack(0), stack(1), stack(3), stack(4),             # gpos, gquat, wpos, wrot
         rows(b["span"]), rows(b["clip_min"]), rows(b["clip_max"]),
@@ -284,9 +327,12 @@ def species_inputs(model, tip: str, sp, N: int, seed: int = 7,
         if sec_terms:
             kw["sec"] = sec_rows(model, sec_terms, N, rng)
         return args, kw
-    k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
-    args += (rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
-             np.exp2(k - 23.0).astype(f32))
+    def draw():
+        k = rng.integers(0, 16, size=(sp.gens, sp.C, N))
+        return (rng.standard_normal(size=(sp.gens, V, sp.C, N), dtype=f32),
+                np.exp2(k - 23.0).astype(f32))
+
+    args += _drawn(rng, ("species noise", sp.gens, V, sp.C, N), draw)
     if sec_terms:
         args += (rng.uniform(size=(sp.gens, 1, N)).astype(f32),
                  sec_rows(model, sec_terms, N, rng))

@@ -12,9 +12,9 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Sequence
 
-import numpy as np
 import torch
 
+from ..graphs import const
 from ..math.frame import Frame
 from ..math.quat import quat_from_axis_angle, quat_mul, quat_normalize, quat_rotate
 from ..robot.model import RobotModel
@@ -31,10 +31,11 @@ class LinkFrames(NamedTuple):
     quat: torch.Tensor
 
 
-def joint_frame(jtype: int, axis: np.ndarray, qvals) -> Frame:
+def joint_frame(jtype: int, axis, qvals) -> Frame:
     """Local joint transform for one joint given its variable slice
     (reference: RobotJointEvaluator::getJointFrame,
-    forward_kinematics.h:89-135)."""
+    forward_kinematics.h:89-135); ``axis`` a numpy array or a tensor of
+    ``qvals``' dtype and device."""
     dt, dev = qvals.dtype, qvals.device
     if jtype == REVOLUTE:
         ax = torch.as_tensor(axis, dtype=dt, device=dev)
@@ -44,14 +45,14 @@ def joint_frame(jtype: int, axis: np.ndarray, qvals) -> Frame:
     if jtype == PRISMATIC:
         ax = torch.as_tensor(axis, dtype=dt, device=dev)
         d = qvals[..., 0:1]
-        ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt, device=dev)
+        ident = const((0.0, 0.0, 0.0, 1.0), dt, dev)
         return Frame(pos=ax * d, quat=ident.expand(d.shape[:-1] + (4,)))
     if jtype == FLOATING:
         return Frame(pos=qvals[..., 0:3], quat=quat_normalize(qvals[..., 3:7]))
     if jtype == PLANAR:
         x, y, theta = qvals[..., 0], qvals[..., 1], qvals[..., 2]
         pos = torch.stack([x, y, torch.zeros_like(x)], dim=-1)
-        z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
+        z_axis = const((0.0, 0.0, 1.0), dt, dev)
         return Frame(pos=pos, quat=quat_from_axis_angle(z_axis, theta))
     raise ValueError(f"unexpected joint type {jtype}")
 
@@ -61,22 +62,32 @@ def make_link_frames_fn(model: RobotModel, link_indices: Sequence[int]):
     of ``link_indices``; also returns ``slot_of_link``."""
     schedule = model.link_schedule(link_indices)
     slot_of_link = {li: s for s, li in enumerate(schedule)}
+    # each link's origin and axis as tensors, built once per dtype and
+    # device: no host-to-device copy per call
+    consts = {}
+
+    def link_consts(dt, dev):
+        if (dt, dev) not in consts:
+            t = lambda x: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+            consts[dt, dev] = (const((0.0, 0.0, 0.0, 1.0), dt, dev), {
+                li: (t(model.origin_pos[li]), t(model.origin_quat[li]), t(model.axis[li]))
+                for li in schedule if model.parent[li] >= 0})
+        return consts[dt, dev]
 
     def fn(q):
         q = model.apply_mimic(q)
         dt, dev = q.dtype, q.device
+        ident, link = link_consts(dt, dev)
         batch = q.shape[:-1]
         pos, quat = [], []
         for li in schedule:
             if model.parent[li] < 0:
                 pos.append(torch.zeros(batch + (3,), dtype=dt, device=dev))
-                quat.append(torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt,
-                                         device=dev).expand(batch + (4,)))
+                quat.append(ident.expand(batch + (4,)))
                 continue
             s = slot_of_link[int(model.parent[li])]
             ppos, pquat = pos[s], quat[s]
-            opos = torch.as_tensor(model.origin_pos[li], dtype=dt, device=dev)
-            oquat = torch.as_tensor(model.origin_quat[li], dtype=dt, device=dev)
+            opos, oquat, axis = link[li]
             pre_pos = ppos + quat_rotate(pquat, opos)
             pre_quat = quat_mul(pquat, oquat.expand_as(pquat))
             jt = int(model.jtype[li])
@@ -85,7 +96,7 @@ def make_link_frames_fn(model: RobotModel, link_indices: Sequence[int]):
                 quat.append(pre_quat)
                 continue
             vs, vc = int(model.vstart[li]), int(model.vcount[li])
-            jf = joint_frame(jt, model.axis[li], q[..., vs:vs + vc])
+            jf = joint_frame(jt, axis, q[..., vs:vs + vc])
             pos.append(pre_pos + quat_rotate(pre_quat, jf.pos))
             quat.append(quat_mul(pre_quat, jf.quat))
         return LinkFrames(pos=torch.stack(pos, dim=-2),
@@ -104,6 +115,7 @@ def make_fk(model: RobotModel, tip_links: Sequence[str],
     tip_idx = [model.link_index[t] for t in tip_links]
     frames_fn, slot_of_link = make_link_frames_fn(model, tip_idx)
     tip_slots = [slot_of_link[t] for t in tip_idx]
+    slots_on = {}     # the slots as an index tensor per device, built once
 
     def fk(q_full):
         if q_full.device.type != dev.type:
@@ -111,7 +123,10 @@ def make_fk(model: RobotModel, tip_links: Sequence[str],
                 f"make_fk was built for {dev}, got a tensor on "
                 f"{q_full.device}")
         lf = frames_fn(q_full)
-        return Frame(pos=lf.pos[..., tip_slots, :],
-                     quat=lf.quat[..., tip_slots, :])
+        d = q_full.device
+        if d not in slots_on:
+            slots_on[d] = torch.as_tensor(tip_slots, device=d)
+        return Frame(pos=lf.pos[..., slots_on[d], :],
+                     quat=lf.quat[..., slots_on[d], :])
 
     return fk

@@ -31,7 +31,7 @@ from .config import DEFAULT_CONFIG, SolverConfig
 from .math.frame import Frame
 from .math.quat import (
     cross,
-    quat_angle_shortest,
+    quat_angle_atan2,
     quat_conj,
     quat_mul,
     quat_rotate,
@@ -266,7 +266,11 @@ class Problem:
                 ok &= torch.all(torch.linalg.vector_norm(dp, dim=-1) <= dpos,
                                 dim=-1)
             if grp.goal_type in ("orientation", "pose") and math.isfinite(drot):
-                ang = quat_angle_shortest(tq, gdata["orientation"]) * (
+                # 2·atan2(‖v‖, |w|) of tip⁻¹·goal: the JAX package's clamped
+                # arccos of the dot (math/quat.py:162) reads 0 below ~1 mrad
+                # once FK's rounding leaves the norms' product above 1, as
+                # on the card; both read the same angle in float64
+                ang = quat_angle_atan2(tq, gdata["orientation"]) * (
                     180.0 / math.pi)
                 ok &= torch.all(ang <= drot, dim=-1)
             if math.isfinite(dtwist):

@@ -206,6 +206,7 @@ class RobotModel:
             self.mimic_factor[var] = mult
             self.mimic_offset[var] = off
             self.mimic_vars.append(var)
+        self._mimic_on = {}   # apply_mimic's tables per (dtype, device)
 
         # ---- bounds (reference: robot_info.h ctor) ----------------------
         mn = np.asarray(v_min, dtype=np.float64)
@@ -410,11 +411,17 @@ class RobotModel:
         """
         if not self.mimic_vars:
             return q
-        dev = q.device
-        src = torch.as_tensor(np.maximum(self.mimic_src, 0), device=dev)
-        is_mimic = torch.as_tensor(self.mimic_src >= 0, device=dev)
-        factor = torch.as_tensor(self.mimic_factor, dtype=q.dtype, device=dev)
-        offset = torch.as_tensor(self.mimic_offset, dtype=q.dtype, device=dev)
+        # the tables on q's device, copied from the host once per dtype and
+        # device: a call captured into a CUDA graph may not copy from the host
+        key = (q.dtype, q.device)
+        if key not in self._mimic_on:
+            dev = q.device
+            self._mimic_on[key] = (
+                torch.as_tensor(np.maximum(self.mimic_src, 0), device=dev),
+                torch.as_tensor(self.mimic_src >= 0, device=dev),
+                torch.as_tensor(self.mimic_factor, dtype=q.dtype, device=dev),
+                torch.as_tensor(self.mimic_offset, dtype=q.dtype, device=dev))
+        src, is_mimic, factor, offset = self._mimic_on[key]
         return torch.where(is_mimic, q[..., src] * factor + offset, q)
 
     def neutral_q(self, dtype=None) -> np.ndarray:

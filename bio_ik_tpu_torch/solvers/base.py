@@ -6,12 +6,11 @@ solution / inject`` set over a state tuple whose tensors carry a leading
 row axis — one row per island of each scenario — which the island path of
 :mod:`bio_ik_tpu_torch.api` steps in lock-step.
 
-The port registers the bio2 family (``solvers/bio2.py``), bio1, the gd and
-jac families and ``test`` (``bio1.py``, ``gd.py``, ``jac.py``,
-``testmode.py``).  The JAX package's other modes (optlib, neural,
-``bio2_memetic_lbfgs``) raise ``NotImplementedError`` naming the ROADMAP.md
-port queue item that ports them; any other name raises ``ValueError``, as
-in the JAX package.
+The port registers every mode of the JAX package's registry: the bio2
+family (``solvers/bio2.py``), bio1, the gd and jac families, ``test``, the
+``optlib_*`` family and ``neural``/``neural2`` (``bio1.py``, ``gd.py``,
+``jac.py``, ``testmode.py``, ``optlib.py``, ``neural.py``); any other name
+raises ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -88,6 +87,15 @@ class SolverContext:
     def clip(self, qa):
         return torch.clamp(qa, self.problem.aclip_min, self.problem.aclip_max)
 
+    def clip_tied(self, qa):
+        """:meth:`clip`'s values with ``jnp.clip``'s gradient — 1 strictly
+        inside, ½ at a bound, 0 outside — for the objectives differentiated
+        through a clip (optlib's, bio2's L-BFGS phase): ``torch.maximum`` and
+        ``torch.minimum`` split a tie as JAX does, where ``torch.clamp``
+        passes all of it."""
+        p = self.problem
+        return torch.minimum(torch.maximum(p.aclip_min, qa), p.aclip_max)
+
 
 class Solver:
     """Protocol of the solvers the island path steps.  Every state tensor
@@ -124,23 +132,6 @@ class Solver:
 _REGISTRY: Dict[str, Callable[[SolverContext, object], Solver]] = {}
 
 
-def _pending_modes() -> Dict[str, str]:
-    """The JAX package's other modes (bio_ik_tpu/solvers/*.py), each with
-    the ROADMAP.md port queue item that ports it."""
-    out = {}
-    for n in ("", "_2", "_4", "_8"):
-        for variant in ("lbfgs", "bfgs", "lbfgsb", "gd", "cgd", "nd", "nm"):
-            for r in ("", "_r"):
-                out[f"optlib_{variant}{r}{n}"] = "5c"
-    out.update({"neural": "5c", "neural2": "5c",
-                # its memetic phase is L-BFGS on optax in the JAX package
-                "bio2_memetic_lbfgs": "5c"})
-    return out
-
-
-_PENDING = _pending_modes()
-
-
 def register_solver(name: str):
     def deco(factory):
         _REGISTRY[name] = factory
@@ -155,10 +146,6 @@ def make_solver(mode: str, ctx: SolverContext, config) -> Solver:
     _import_all()
     if mode in _REGISTRY:
         return _REGISTRY[mode](ctx, config)
-    if mode in _PENDING:
-        raise NotImplementedError(
-            f"solver mode {mode!r} is not ported yet (ROADMAP.md, port queue "
-            f"item {_PENDING[mode]})")
     raise ValueError(f"unknown solver mode {mode!r}; available: {sorted(_REGISTRY)}")
 
 
@@ -167,6 +154,8 @@ def _import_all():
     from . import bio2 as _bio2  # noqa: F401
     from . import gd as _gd  # noqa: F401
     from . import jac as _jac  # noqa: F401
+    from . import neural as _neural  # noqa: F401
+    from . import optlib as _optlib  # noqa: F401
     from . import testmode as _testmode  # noqa: F401
 
 

@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..graphs import Replay, const
 from ..math.frame import Frame
 from ..math.quat import quat_angle_atan2
 from .base import Solver, SolverContext, register_solver
@@ -113,6 +114,8 @@ class Bio1Solver(Solver):
         self.no_wipeout = config.no_wipeout
         self.linear_fitness = config.linear_fitness
         self._build_heuristic_tables()
+        self._replay = Replay(lambda st, data, draws: tuple(
+            self._step(Bio1State(None, *st), data, draws)[1:]))
 
     # -- HeuristicErrorTree (reference: ik_evolution_1.cpp:50-119) --------
     def _build_heuristic_tables(self):
@@ -170,7 +173,8 @@ class Bio1Solver(Solver):
             pos.append(gdata["position"][..., k, :] if "position" in gdata
                        else lead.new_zeros(lead.shape + (3,)))
             quat.append(gdata["orientation"][..., k, :] if "orientation" in gdata
-                        else lead.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(lead.shape + (4,)))
+                        else const((0.0, 0.0, 0.0, 1.0), lead.dtype, lead.device).expand(
+                            lead.shape + (4,)))
         return torch.stack(pos, dim=-2), torch.stack(quat, dim=-2)
 
     def _distances(self, tips: Frame, data):
@@ -342,11 +346,17 @@ class Bio1Solver(Solver):
 
     # -- evolve (reference: :501-548) --------------------------------------
     def step(self, st: Bio1State, data, draws: Optional[Bio1Draws] = None) -> Bio1State:
+        """One step of every row, replayed from a CUDA graph on the card
+        (:class:`~bio_ik_tpu_torch.graphs.Replay`); ``draws`` from the
+        state's generator when None."""
+        if draws is None:
+            draws = self.draw_step(st.generator, st.genes.shape[0])
+        return Bio1State(st.generator, *self._replay(tuple(st[1:]), data, draws))
+
+    def _step(self, st: Bio1State, data, draws: Bio1Draws) -> Bio1State:
         ctx = self.ctx
         R, N, V = st.genes.shape
         E = self.elites
-        if draws is None:
-            draws = self.draw_step(st.generator, R)
         d1 = _lead(data, 1)
 
         # the elites: greedy exploit

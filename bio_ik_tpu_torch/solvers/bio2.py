@@ -2,14 +2,16 @@
 
 Port of :mod:`bio_ik_tpu.solvers.bio2` (reference: IKEvolution2,
 src/ik_evolution_2.cpp:45-658; modes ``bio2``, ``bio2_memetic`` and
-``bio2_memetic_l`` at :652-654), the unfused solver of the island path.
+``bio2_memetic_l`` at :652-654, and ``bio2_memetic_lbfgs`` at :656-658), the
+unfused solver of the island path.
 The fused engine (``engine.py``) reads :func:`quat_gene_slices` from here.
 
 Per island per step (reference step(), ik_evolution_2.cpp:328-646), two
 species each: linearize the tip frames at the species' best individual;
 8 generations (16 without the memetic phase) of reproduce → pre-select →
 approximate fitness → keep the best 2; 8 iterations of gradient + 3-point
-line search on the approximate fitness; exact fitness, species sort,
+line search on the approximate fitness (or, in ``bio2_memetic_lbfgs``, 8
+L-BFGS updates, ``solvers/lbfgs.py``); exact fitness, species sort,
 wipeout of a stagnant non-best species, incumbent update.
 
 Every tensor carries a leading row axis R (scenario × island) and the
@@ -29,7 +31,9 @@ import torch
 from ..kinematics.approx import apply_deltas
 from ..math.quat import quat_normalize_fast
 from ..robot.urdf import FLOATING
+from ..graphs import Replay
 from .base import Solver, SolverContext, register_solver
+from .lbfgs import QuasiNewton, line_iteration, value_and_grad
 
 __all__ = ["Bio2Solver", "Bio2State", "Bio2Draws", "quat_gene_slices"]
 
@@ -95,15 +99,16 @@ def _lead(data, k: int):
 
 
 class Bio2Solver(Solver):
-    """``memetic`` ∈ {'', 'q', 'l'} selects bio2 / bio2_memetic /
-    bio2_memetic_l (reference template parameter, ik_evolution_2.cpp:45)."""
+    """``memetic`` ∈ {'', 'q', 'l', 'o'} selects bio2 / bio2_memetic /
+    bio2_memetic_l / bio2_memetic_lbfgs (reference template parameter,
+    ik_evolution_2.cpp:45)."""
 
     default_islands = 4  # reference: concurrency(), ik_evolution_2.cpp:649
 
     def __init__(self, ctx: SolverContext, config, memetic="q"):
         super().__init__(ctx, config)
-        if memetic not in ("", "q", "l"):
-            raise ValueError(f"memetic must be '', 'q' or 'l', got {memetic!r}")
+        if memetic not in ("", "q", "l", "o"):
+            raise ValueError(f"memetic must be '', 'q', 'l' or 'o', got {memetic!r}")
         self.memetic = memetic
         self.generations = 8 if memetic else 16  # reference :349-350
         self.quat_slices = quat_gene_slices(ctx.problem.model,
@@ -115,6 +120,18 @@ class Bio2Solver(Solver):
         self._fmix = torch.where(child % 2 == 0, 0.2, 0.0).to(dt)[:, None]
         self._fmix1 = 1 - self._fmix
         self._gfac = (child % 3).to(dt)[:, None]
+        self._lbfgs = QuasiNewton(memory=10)
+
+        # the L-BFGS objective's value and gradient at the clipped genes on
+        # data, over the linearization (x0, tips0, deltas), and the line
+        # search's iteration with it, each replayed from a CUDA graph on the
+        # card
+        def vg(x, x0, tips0, deltas, data):
+            return value_and_grad(lambda y: _approx_fitness(
+                p, ctx.clip_tied(y), x0, tips0, deltas, data, combined=True), x)
+
+        self._lbfgs_vg = Replay(vg)
+        self._lbfgs_line = Replay(line_iteration(vg, self._lbfgs.max_steps))
 
     # ------------------------------------------------------------------
     def init(self, generator, data, randomize=None):
@@ -216,6 +233,8 @@ class Bio2Solver(Solver):
         the primary fitness improves.  ``genes0 (..., V)``; ``data``
         broadcasts against ``(...)`` and ``(..., 2)``."""
         ctx, p = self.ctx, self.ctx.problem
+        if self.memetic == "o":
+            return self._memetic_lbfgs(genes0, x0, tips0, deltas, data)
         h = 1e-3
         # the linearization with a unit axis for the two probes of a row
         lin2 = (x0[..., None, :], tips0[..., None, :, :], deltas[..., None, :, :, :])
@@ -247,6 +266,24 @@ class Bio2Solver(Solver):
             if bool(done.all()):
                 break
         return genes
+
+    def _memetic_lbfgs(self, genes0, x0, tips0, deltas, data):
+        """The L-BFGS memetic phase (JAX bio2.py:190-219; reference:
+        bio2_memetic_lbfgs, ik_evolution_2.cpp:571-600): ``_MEMETIC_ITERS``
+        L-BFGS updates (memory 10, the zoom line search) on the combined
+        approximate fitness at the clipped genes, then the clip, the check on
+        a finite result and keep-if-better."""
+        ctx, p = self.ctx, self.ctx.problem
+        opt = self._lbfgs
+        x, st = genes0, opt.init(genes0)
+        for _ in range(_MEMETIC_ITERS):
+            x, st = opt.update(self._lbfgs_vg, x, st, (x0, tips0, deltas, data),
+                               self._lbfgs_line)
+        x = ctx.clip(x)
+        x = torch.where(torch.isfinite(x).all(dim=-1, keepdim=True), x, genes0)
+        better = (_approx_fitness(p, x, x0, tips0, deltas, data, combined=True)
+                  < _approx_fitness(p, genes0, x0, tips0, deltas, data, combined=True))
+        return torch.where(better[..., None], x, genes0)
 
     # ------------------------------------------------------------------
     def step(self, st: Bio2State, data, draws: Optional[Bio2Draws] = None) -> Bio2State:
@@ -313,3 +350,5 @@ class Bio2Solver(Solver):
 register_solver("bio2")(lambda ctx, config: Bio2Solver(ctx, config, memetic=""))
 register_solver("bio2_memetic")(lambda ctx, config: Bio2Solver(ctx, config, memetic="q"))
 register_solver("bio2_memetic_l")(lambda ctx, config: Bio2Solver(ctx, config, memetic="l"))
+register_solver("bio2_memetic_lbfgs")(
+    lambda ctx, config: Bio2Solver(ctx, config, memetic="o"))

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..graphs import Replay
 from .base import Solver, SolverContext, register_solver
 from .bio2 import _lead
 
@@ -45,6 +46,8 @@ class GDSolver(Solver):
         super().__init__(ctx, config)
         self.if_stuck = if_stuck
         self.default_islands = islands
+        self._replay = Replay(lambda st, data, rand_u: tuple(
+            self._step(GDState(None, *st), data, rand_u)[1:]))
 
     def init(self, generator, data, randomize):
         ctx = self.ctx
@@ -56,20 +59,26 @@ class GDSolver(Solver):
                        reset=torch.zeros_like(f, dtype=torch.bool))
 
     def step(self, st: GDState, data, rand_u: Optional[torch.Tensor] = None) -> GDState:
-        """One step of every row; ``rand_u (R, V)`` are the uniforms of the
-        random restart (drawn from the state's generator when None)."""
+        """One step of every row, replayed from a CUDA graph on the card
+        (:class:`~bio_ik_tpu_torch.graphs.Replay`); ``rand_u (R, V)`` are
+        the uniforms of the random restart (drawn from the state's generator
+        when None)."""
+        if rand_u is None:
+            rand_u = torch.rand(st.qa.shape, generator=st.generator, dtype=st.qa.dtype,
+                                device=st.qa.device)
+        return GDState(st.generator, *self._replay(tuple(st[1:]), data, rand_u))
+
+    def _step(self, st: GDState, data, rand_u) -> GDState:
         ctx, p = self.ctx, self.ctx.problem
         R, V = st.qa.shape
         dt, dev = st.qa.dtype, st.qa.device
-        if rand_u is None:
-            rand_u = torch.rand((R, V), generator=st.generator, dtype=dt, device=dev)
         # random restart where flagged (reference: ik_gradient.cpp:161-167)
         qa = torch.where(st.reset[:, None], p.amin + rand_u * (p.amax - p.amin), st.qa)
 
         # 2-point numeric gradient (reference: ik_gradient.cpp:171-188,
         # jd = 1e-4), one batched fitness call that also gives a restarted
         # row's fitness
-        jd = torch.tensor(1e-4, dtype=dt, device=dev)
+        jd = torch.full((), 1e-4, dtype=dt, device=dev)
         eye = torch.eye(V, dtype=dt, device=dev) * jd
         cand = torch.cat([qa[:, None], qa[:, None] - eye, qa[:, None] + eye], dim=1)
         d1 = _lead(data, 1)

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kinematics.approx import apply_deltas
-from ..math.quat import quat_angle_shortest, quat_normalize
+from ..math.quat import quat_angle_atan2, quat_normalize
 from .base import Solver, SolverContext, register_solver
 
 __all__ = ["TestSolver", "TestState"]
@@ -57,8 +57,10 @@ class TestSolver(Solver):
         exact = ctx.tips_frame(data["seed_full"][:, None], qs)        # Frame (R, N, T)
         pos_err = torch.linalg.vector_norm(approx[..., 0:3] - exact.pos,
                                            dim=-1).mean(dim=(1, 2))
-        rot_err = quat_angle_shortest(quat_normalize(approx[..., 3:7]),
-                                      exact.quat).mean(dim=(1, 2))
+        # the atan2 form of the angle (JAX: the clamped arccos of the dot,
+        # blind below ~1 mrad in float32; problem.check_solution)
+        rot_err = quat_angle_atan2(quat_normalize(approx[..., 3:7]),
+                                   exact.quat).mean(dim=(1, 2))
         for p, r in zip(pos_err.tolist(), rot_err.tolist()):
             print(f"ik test: mean dpos {p} mean drot {r} rad over {_N_PROBES} probes")
         return TestState(qa=qa0, fitness=ctx.fitness_exact(qa0, data),

@@ -34,7 +34,7 @@ from bio_ik_tpu.solvers.bio2 import Bio2State as JBio2State
 import bio_ik_tpu_torch.goals as G
 from bio_ik_tpu_torch import IKSolver, RobotModel, SolverConfig, make_fk
 from bio_ik_tpu_torch.interop import tree_from_numpy, tree_map
-from bio_ik_tpu_torch.solvers.base import _PENDING, solver_names
+from bio_ik_tpu_torch.solvers.base import solver_names
 from bio_ik_tpu_torch.solvers.bio2 import Bio2Draws, _lead
 
 # small tensors: one intra-op thread per test worker (the suite runs six)
@@ -106,17 +106,11 @@ def _lin(ts, td, x0):
 
 
 def test_registry_names_are_jax_names():
-    """The port registers the bio2 family, bio1, the 12 gd and 4 jac names
-    and test; with the modes it names as pending (item 5c), that is exactly
-    the JAX package's registry."""
-    jn = set(j_solver_names())
-    gd = {f"gd{s}{n}" for s in ("", "_r", "_c") for n in ("", "_2", "_4", "_8")}
-    jac = {f"jac{n}" for n in ("", "_2", "_4", "_8")}
-    assert set(solver_names()) == ({"bio2", "bio2_memetic", "bio2_memetic_l", "bio1",
-                                    "test"} | gd | jac)
-    assert set(solver_names()) <= jn and not set(solver_names()) & set(_PENDING)
-    assert set(solver_names()) | set(_PENDING) == jn
-    assert set(_PENDING.values()) == {"5c"}
+    """The port registers exactly the JAX package's mode names: the bio2
+    family, bio1, the 12 gd, 4 jac and 56 optlib names, neural, neural2 and
+    test; no mode is left to port."""
+    assert solver_names() == sorted(j_solver_names())
+    assert len(solver_names()) == 80
 
 
 @pytest.mark.parametrize("mode,item", [
@@ -124,18 +118,17 @@ def test_registry_names_are_jax_names():
     ("optlib_lbfgs", "5c"), ("optlib_nm_r_4", "5c"), ("neural2", "5c"),
     ("bio2_memetic_lbfgs", "5c")])
 def test_pending_modes_name_their_item(mode, item):
-    """The item 5c modes raise naming their item; the item 5b modes, ported
-    now, build and run one step of one query."""
+    """The modes the port once listed as pending, by the ROADMAP.md port
+    queue item that ported them (5b, 5c), each build on the island path and
+    run one step of one query to a finite result."""
     m = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
-    if item == "5b":
-        s = IKSolver(m, [G.PoseGoal(link=TIP)],
-                     SolverConfig(mode=mode, max_steps=1, steps_per_check=1))
-        assert s.engine is None
-        res = s.solve(torch.as_tensor(m.neutral_q()), key=[0, 3])
-        assert res.q.shape == (m.nvars,) and torch.isfinite(res.q).all()
-        return
-    with pytest.raises(NotImplementedError, match=f"port queue item {item}\\)"):
-        IKSolver(m, [G.PoseGoal(link=TIP)], SolverConfig(mode=mode))
+    s = IKSolver(m, [G.PoseGoal(link=TIP)],
+                 SolverConfig(mode=mode, max_steps=1, steps_per_check=1,
+                              neural_train_steps=20))
+    assert s.engine is None and "not a fused bio2 family" in s.unsupported
+    res = s.solve(torch.as_tensor(m.neutral_q()), key=[0, 3])
+    assert res.q.shape == (m.nvars,) and torch.isfinite(res.q).all()
+    assert torch.isfinite(res.fitness)
 
 
 def test_unknown_mode_raises():
@@ -215,6 +208,28 @@ def test_memetic_matches_jax(memetic, case, spread, rng):
     assert tmem.dtype == np.float64
     assert (np.abs(jmem - g0).max(-1) > 1e-9).mean() >= 0.75  # the descent moved
     np.testing.assert_allclose(tmem, jmem, rtol=0, atol=1e-5)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case,spread", [("pose", 0.02), ("regularized", 0.05)])
+def test_memetic_lbfgs_matches_jax(case, spread, rng):
+    """``bio2_memetic_lbfgs``'s memetic phase (8 L-BFGS updates with the
+    zoom line search on the combined approximate fitness through the tied
+    clip, then keep-if-better; JAX bio2.py:190-219) on 16 rows within 1e-8
+    in float64.  ``slow``: the JAX phase compiles in ~10 s here."""
+    n = 16
+    with jax.enable_x64(True):
+        jm, tm, js, ts = _pair(case, "bio2_memetic_lbfgs", "float64")
+        jd, genes, _ = _rows(jm, tm, js, rng, n, spread=spread)
+        td = tree_from_numpy(jd, "cpu")
+        x0, g0 = genes[:, 0], genes[:, 1]
+        tips0, deltas = _lin(ts, td, x0)
+        jmem = np.asarray(jax.jit(jax.vmap(lambda x, a, t, dl, d: js.solver._memetic(
+            jax.random.PRNGKey(0), x, a, t, dl, d)))(g0, x0, tips0, deltas, jd))
+    tt = [torch.from_numpy(a[:, None]) for a in (g0, x0, tips0, deltas)]
+    tmem = ts.solver._memetic(*tt, _lead(td, 1))[:, 0].numpy()
+    assert (np.abs(jmem - g0).max(-1) > 1e-6).mean() >= 0.75   # the phase moved
+    np.testing.assert_allclose(tmem, jmem, rtol=0, atol=1e-8)
 
 
 _KIND_GOALS = {

@@ -180,6 +180,49 @@ def test_generated_source_text_and_its_hash(tmp_path, monkeypatch):
         first = changed
 
 
+def test_a_source_building_in_another_thread_is_waited_for(tmp_path, monkeypatch):
+    """Two threads asking for one source run one ``nvcc`` between them, and
+    both return once its library is there (a build started in the
+    background serves the first use of its kernels); a failed build raises
+    in the thread that waited for it too.  ``nvcc`` is a stand-in script."""
+    import sys
+    import threading
+
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys, time\n"
+                    f"open({str(calls)!r}, 'a').write('x')\n"
+                    "time.sleep(0.5)\n"
+                    "if 'fail' in sys.argv[-1]: sys.exit(1)\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(build, "GEN_DIR", str(tmp_path / "kernels" / "gen"))
+    for name in ("bg_ok", "bg_fail"):
+        monkeypatch.setitem(build._generated, name, (f"// {name}\n", []))
+    for name, ok in (("bg_ok", True), ("bg_fail", False)):
+        calls.write_text("")
+        errors = []
+
+        def ask():
+            try:
+                build.build_all([name])
+            except RuntimeError as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=ask) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert calls.read_text() == "x"
+        assert os.path.exists(build._target(name)) is ok
+        assert len(errors) == (0 if ok else 2)
+    assert not build._building
+
+
 def test_layout_copy_holds_the_recorded_block_sizes():
     """The Python copy of ``layout()`` (csrc/megastep.cuh) at the high-DOF
     instances: 164 KiB a snake block at G = 1 and 308 KiB with secondary

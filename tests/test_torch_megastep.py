@@ -45,7 +45,7 @@ from bio_ik_tpu_torch.kernels.bio2_megastep import (
     philox_draw,
 )
 from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams
-from bio_ik_tpu_torch.kernels.checks import lane_agreement, megastep_inputs
+from bio_ik_tpu_torch.kernels.checks import lane_agreement, megastep_inputs, species_inputs
 from bio_ik_tpu_torch.kernels.fk_rows import FkRows
 
 # small tensors: one intra-op thread per test worker (the suite runs six)
@@ -89,6 +89,48 @@ def test_fk_rows_match_jax(models, rng):
         (jp, jq), (tp, tq) = jd[0], td[0]
         for a, b in zip(jp + jq, tp + tq):
             np.testing.assert_allclose(_comp_np(b, 64), _comp_np(a, 64), atol=1e-5)
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for e in x for v in _leaves(e)]
+    return [] if x is None else [x]
+
+
+def test_input_makers_repeat_a_draw_exactly(models, monkeypatch):
+    """``megastep_inputs`` and ``species_inputs`` remember their draws by
+    the generator's state: a repeat, and a variant that draws more after
+    the remembered part (secondary rows, Philox salts), equal a draw made
+    with nothing remembered, and a caller writing into its arrays does not
+    change the next caller's."""
+    from bio_ik_tpu_torch.kernels import checks
+
+    _, tm = models
+    fm = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
+    ssp = SpeciesParams(V=fm.nvars, K=2, C=4, gens=2, quat_slices=(3,))
+    calls = [lambda: megastep_inputs(tm, TIP, SpeciesParams(**SP), NSTEPS, N),
+             lambda: megastep_inputs(tm, TIP, SpeciesParams(**SP), 1, N, seed=13,
+                                     sec_terms=("beta", "gamma")),
+             lambda: megastep_inputs(tm, TIP, SpeciesParams(**SP), NSTEPS, N,
+                                     with_noise=False, inst_kind=["direction"]),
+             lambda: species_inputs(fm, "tool", ssp, 64, inst_kind=["position", "pose"]),
+             lambda: species_inputs(fm, "tool", ssp, 64, philox=True,
+                                    sec_terms=("beta", "gamma"))]
+    fresh = []
+    for call in calls:
+        monkeypatch.setattr(checks, "_DRAWN", type(checks._DRAWN)())
+        fresh.append(_leaves(call()))
+    monkeypatch.setattr(checks, "_DRAWN", type(checks._DRAWN)())
+    for _ in range(2):
+        for call, want in zip(calls, fresh):
+            got = _leaves(call())
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+                a[...] = 0
+    assert len(checks._DRAWN) == 6
 
 
 def test_fk_rows_chain_arrays_describe_the_schedule(models):
