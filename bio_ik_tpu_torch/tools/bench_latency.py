@@ -196,7 +196,8 @@ def run_deadline(m, tg, timeout_s, spc=8, n=None):
 
 def _device_ms(s, data, keys, K=16):
     """Device time per query of ``K`` queued ``solve_batch`` queries: on the
-    card the kernels' busy time (``torch.profiler``: what the device
+    card the kernels' busy time (``torch.profiler`` recording the device's
+    activity only — the host's events are not read —: what the device
     computes, without the host's eager prep and glue around it), on the
     CPU the host clock (the plain versions are the device work there)."""
     from torch.autograd import DeviceType
@@ -209,7 +210,7 @@ def _device_ms(s, data, keys, K=16):
         for i in range(K):
             s.solve_batch(keys[i:i + 1], data).q.cpu()
         return (time.perf_counter() - t0) / K * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(K):
             s.solve_batch(keys[i:i + 1], data)
         _sync(dev)

@@ -10,7 +10,9 @@ one, the JAX suite's two PR2 dual-arm rows on the wide megastep instance
 and its snake-32 and humanoid rows on the high-DOF instances, shapes that
 no prebuilt source holds on instances generated on first use, latency
 mode and the island path of the single-query entry points), the species tier
-(floating and planar chains, with and without the regularizers) and the
+(floating and planar chains, with and without the regularizers), the JAX
+suite's UR5 and KUKA rows through the port's bench_suite, the sharded
+solves in a world of one and of two, the float64 native FK oracle and the
 FP32 peak calibration — and holds each hand-written CUDA kernel against
 its plain torch version.  Phases, each
 printing one JSON line and its seconds; any failure raises and exits
@@ -44,7 +46,12 @@ non-zero:
                     (snake: one joint's axis negated, the position term
                     dropped; humanoid: tips permuted, rotation weights
                     zeroed), every G bitwise equal to the smallest that
-                    fits, exact FK and fitness on 131 072 lanes;
+                    fits, exact FK and fitness on 131 072 lanes; the
+                    prebuilt (6, 1, 1) instance (UR5's tool0, the JAX
+                    suite's ur5_pose row) likewise at that row's first
+                    launch's 131 072 lanes (controls: one joint's axis
+                    negated, the rotation weights zeroed), every G
+                    bitwise equal to G = 1;
   rng             — in-kernel Philox vs the plain version's at each main-path
                     launch's lane count (≥ 85 %), clt4 moments, rate bins
                     (the 4-bit fields of a generation's rate call), bitwise
@@ -127,7 +134,8 @@ non-zero:
                     (success ≥ 0.995, one megastep launch per chunk),
                     solve_batch at B = 1, the 1 / 5 / 20 ms wall-clock
                     deadlines and their device-step budgets at 32 islands
-                    (≥ 0.99 at 20 ms), the island path's success on 50
+                    on the first 50 targets (≥ 0.99 at 20 ms), the island
+                    path's success on 50
                     targets at 64 steps (within 0.1 of the JAX package's)
                     and IKSolver.solve's time on 1, solve / search /
                     solve_until of each bio2
@@ -137,6 +145,31 @@ non-zero:
                     query's prep / kernel / glue split, the prep's
                     synchronizing copies and none inside a chunk,
                     the device's idle share;
+  native          — the port's float64 C++ oracle (bio_ik_tpu_torch.native,
+                    built with g++ while nvcc compiles): the card's float32
+                    FK within 3e-6 of it on 4 096 configurations each of
+                    pr2_arm and the humanoid (position; quaternion up to
+                    sign), its support point equal to an argmax of the dot
+                    product on a random hull;
+  suite           — the JAX suite's ur5_pose (the (6, 1, 1) instance, its
+                    ladder (1,8),(2,32),(4,64),(8,64)) and kuka_iiwa_pose
+                    (tight bounds) rows through
+                    python -m bio_ik_tpu_torch.tools.bench_suite's
+                    run_config at B = 65 536, its JSON lines: success
+                    ≥ 0.999, median position error ≤ 1.8e-6 / 9.7e-7 m,
+                    4 / 3 megastep launches per solve_batch;
+  parallel        — the sharded solves of bio_ik_tpu_torch.parallel through
+                    tools/parallel_check: a world of one over NCCL (the
+                    batch-sharded solve at B = 65 536 bitwise solve_batch;
+                    the fused island-sharded solve of 8 single queries,
+                    success ≥ 0.99 and bitwise the single query, and with
+                    migration; the island path's at 4 steps bitwise
+                    IKSolver.solve), then a world of two over gloo on the
+                    one card, two spawned processes (the batch-sharded
+                    result at B = 8 192 bitwise the halves' solve_batch;
+                    the island-sharded solve with migration the same on
+                    both ranks, below the seed's fitness); launches and ms
+                    per row;
   unfused_modes   — the island path's other solvers through
                     IKSolver.solve_batch on the JAX package's records:
                     Table B's 64 PR2 targets (gd_c_4 in float64 at 256
@@ -191,7 +224,8 @@ non-zero:
                     bound of the generator's integer work (its Philox
                     calls, one call's SASS counted, at the card's IMAD, ALU
                     and issue rates);
-                    the wide instance at both dual paths' launch shapes,
+                    the (6, 1, 1) instance at ur5_pose's four launch
+                    shapes, the wide instance at both dual paths' launch shapes,
                     the high-DOF ones at snake_main's and humanoid_main's,
                     the generated ones at their paths' first launch
                     (every G that fits at each path's first shape);
@@ -327,6 +361,10 @@ LAT_SHAPES = ((8, 4), (8, 8), (8, 16), (8, 32), (64, 8))
 # calls take 2.7–4.4 s each on the card's host, ~200 s), and IKSolver.solve
 # itself timed on the first of them
 LAT_N = 200
+# the wall-clock and device-step deadline rows run on the first
+# LAT_DEADLINE_N of them (3 deadlines each; all 200 took ~95 s of the
+# smoke's 1 200 s on a slow host)
+LAT_DEADLINE_N = 50
 LAT_ISLAND_N, LAT_ISLAND_STEPS, LAT_ISLAND_TIMED = 50, 64, 1
 # the JAX package's island path on those 50 targets at that budget: 50 of
 # 50 on a CPU (tests/test_torch_latency.py::test_island_solve_matches_jax_
@@ -371,6 +409,21 @@ SHAPES_BARS = {"arm_lookat": 0.995, "dual_head": 0.99, "free_posori": 0.99,
                "arm_lookat_alone": 0.99, "humanoid_two_hands": 0.995}
 
 
+# the JAX suite's ur5_pose (V = 6: the prebuilt (6, 1, 1) instance of
+# csrc/megastep.cu; tools/bench_suite.py:115-121) and kuka_iiwa_pose (V = 7
+# with tight bounds on every joint: the bounded-revolute clip path; :168-174)
+# through the port's bench_suite (its ROWS) at this batch, each held to
+# (success, median position error, megastep launches per solve_batch) —
+# 10× the JAX suite's median (BENCHMARKS.md:23-24) as PERF.md §2's rule
+B_SUITE = 65536
+SUITE_LIMITS = {"ur5_pose": (0.999, 1.8e-6, 4), "kuka_iiwa_pose": (0.999, 9.7e-7, 3)}
+# native: the card's float32 FK against the port's float64 C++ oracle on
+# this many configurations of each robot, within this tolerance (the JAX
+# package's tests/test_native.py:36-46)
+NATIVE_N, NATIVE_ATOL = 4096, 3e-6
+NATIVE_ROBOTS = (("pr2_arm.urdf", (TIP,)), ("humanoid.urdf", ("r_hand", "l_hand", "head")))
+# parallel: the world of two's batch (two ranks over gloo on the one card)
+B_WORLD_TWO = 8192
 # unfused_modes: the island path's other solvers on the JAX package's own
 # quality records (the card's machine has no JAX, so the anchors are
 # constants).  Table B (BENCHMARKS.md:157-168): 64 PR2 targets, uniform in
@@ -600,11 +653,14 @@ class Smoke:
                                  tips)
         # the robots of this slice's generated instances (GEN_CASES)
         hum_card, hum_cpu, _ = self.robots["humanoid"]
+        self.robots["ur5"] = (RobotModel.from_urdf_file(asset_path("ur5.urdf")),
+                              RobotModel.from_urdf_file(asset_path("ur5.urdf"), device="cpu"),
+                              ("tool0",))
         self.robots.update(arm=(self.model, self.cpu_model, (TIP,)),
                            dual_head=(self.dual, self.dual_cpu, DUAL_TIPS + (HEAD,)),
                            humanoid_hands=(hum_card, hum_cpu, ("r_hand", "l_hand")))
         self.kernels = {name: {} for name in (
-            "megastep", "megastep_dual", "megastep_dual_sec", "megastep_snake",
+            "megastep", "megastep_ur5", "megastep_dual", "megastep_dual_sec", "megastep_snake",
             "megastep_snake_sec", "megastep_humanoid", "megastep_humanoid_sec", "species",
             "fullstep", "fullstep_dual", "fullstep_snake", "fullstep_humanoid", "peak")
             + tuple(c[0] for c in GEN_CASES) + (GEN_SPECIES[0],)}
@@ -756,9 +812,10 @@ class Smoke:
         lib = mega._lib(N)
         return [g for g in mega.groups if mega.resident_blocks(lib, self.dev, g) > 0]
 
-    def _wide_check(self, kinds, terms=(), robot="dual"):
-        """A wide or high-DOF megastep against its plain version (two steps,
-        noise tensors, N_WIDE_CHECK lanes) at the group size chosen and,
+    def _wide_check(self, kinds, terms=(), robot="dual", N=N_WIDE_CHECK):
+        """A wide or high-DOF megastep (or the narrow one on ``robot``)
+        against its plain version (two steps,
+        noise tensors, ``N`` lanes) at the group size chosen and,
         bitwise, every group size that fits against the smallest; in-kernel
         Philox against the plain version's; the floor (the plain version on
         the CPU against itself on the card, first N_WIDE_FLOOR lanes) and
@@ -772,7 +829,7 @@ class Smoke:
         from bio_ik_tpu_torch.kernels.bio2_megastep import array_draw, philox_draw
         from bio_ik_tpu_torch.kernels.checks import axis_negated
 
-        N, n = N_WIDE_CHECK, N_WIDE_FLOOR
+        n = N_WIDE_FLOOR
         mega, sp = self._wide(2, kinds, terms, robot=robot)
         state, consts, noise = self._wide_inputs(sp, 2, N, kinds, terms, robot=robot)
         keep = noise[4] if terms else None
@@ -915,6 +972,7 @@ class Smoke:
             raise AssertionError(f"exact FK/fitness disagree: {err_tips}, {err_fit}")
         self.kernels["megastep"].update(agree_frac=frac,
                                         max_abs_err=max(err_tips, err_fit))
+        self._ur5_check()
         self._wide_fk_check("megastep_dual", POSE2_KINDS)
         row = self._wide_check(POSE2_KINDS)
         emit({"phase": "check", "instance": [17, 2, 2], **row})
@@ -922,6 +980,26 @@ class Smoke:
             agree_frac=row["agree_frac"], philox_agree_frac=row["philox_agree_frac"],
             floor_agree_frac=row["plain_cpu_vs_card_agree_frac"])
         self._high_checks("check", sec=False)
+
+    def _ur5_check(self):
+        """The prebuilt (6, 1, 1) instance (the ur5_pose row's) on UR5's
+        tool0, held as the wide instances are, at the lanes of that row's
+        first launch: exact FK and fitness with no selection, then lane
+        agreement in both randomness modes against its CPU-vs-card floor,
+        two wrong plain versions (one joint's axis negated, the rotation
+        weights zeroed) and every G bitwise equal to G = 1."""
+        from bio_ik_tpu_torch.tools.bench_suite import ROWS
+
+        row = ROWS["ur5_pose"]
+        N = phase_shapes(row["phases"], row["fractions"], B_SUITE)[0][0]
+        self._wide_fk_check("megastep_ur5", ("pose",), robot="ur5", N=N)
+        out = self._wide_check(("pose",), robot="ur5", N=N)
+        emit({"phase": "check", "instance": [6, 1, 1], **out})
+        if out["reference_group"] != 1:
+            raise AssertionError(f"G = 1 of the (6, 1, 1) instance does not fit: {out}")
+        self.kernels["megastep_ur5"].update(
+            agree_frac=out["agree_frac"], philox_agree_frac=out["philox_agree_frac"],
+            floor_agree_frac=out["plain_cpu_vs_card_agree_frac"], group=out["group_chosen"])
 
     def _high_checks(self, phase, sec):
         """The high-DOF instances (pose-only, or with ``sec`` their checks'
@@ -1547,9 +1625,9 @@ class Smoke:
         ``bio_ik_tpu_torch.tools.bench_latency`` (PR2, PoseGoal, dtwist 1e-3,
         LAT_N targets): ``IKSolver.solve_until`` at each (steps_per_check,
         64) — success ≥ 0.995 and one megastep launch per chunk run —;
-        ``solve_batch`` at B = 1; the wall-clock deadlines; the device-step
-        budgets of the deadlines at islands = 32 (the 20 ms row's success ≥
-        0.99); the island path's success on the first LAT_ISLAND_N targets
+        ``solve_batch`` at B = 1; the wall-clock deadlines and the device-step
+        budgets of the deadlines at islands = 32, both on the first
+        LAT_DEADLINE_N targets (the 20 ms budget's success ≥ 0.99); the island path's success on the first LAT_ISLAND_N targets
         (within 0.1 of the JAX package's ``solve``) and ``IKSolver.solve``'s
         time per query on the first LAT_ISLAND_TIMED; a query split into
         prep, kernel and glue, with the synchronizing host copies of its prep
@@ -1569,8 +1647,9 @@ class Smoke:
         out["solve_until"] = [bl.run_setting(m, tg, spc, ms) for spc, ms in bl.SETTINGS]
         out["solve_until_launches"] = launches = Megastep.launches
         out["fused_single_dispatch"] = bl.run_fused_single(m, tg)
-        out["deadline_wall"] = [bl.run_deadline(m, tg, t) for t in bl.DEADLINES_S]
-        out["deadline_device"] = bl.run_deadline_device(m, tg)
+        out["deadline_wall"] = [bl.run_deadline(m, tg, t, n=LAT_DEADLINE_N)
+                                for t in bl.DEADLINES_S]
+        out["deadline_device"] = bl.run_deadline_device(m, tg, n=LAT_DEADLINE_N)
         out["breakdown"] = bl.run_breakdown(m, tg, n=50)
         # the prep's synchronizing copies, and none inside a chunk
         s = bl._solver(m, max_steps=64, steps_per_check=4)
@@ -2644,7 +2723,12 @@ class Smoke:
         h_kinds = HIGH_DOF["humanoid"][2]
         gen = tuple((name, name, robot, kinds, terms, [self._gen_lanes(name)])
                     for name, robot, kinds, terms in GEN_CASES)
+        from bio_ik_tpu_torch.tools.bench_suite import ROWS
+
+        ur5 = ROWS["ur5_pose"]
         for name, key, robot, kinds, terms, shapes in (
+                ("megastep_ur5", "ur5_pose", "ur5", ("pose",), (),
+                 phase_shapes(ur5["phases"], ur5["fractions"], B_SUITE)),
                 ("megastep_dual", "pose2", "dual", POSE2_KINDS, (),
                  phase_shapes(DUAL_PHASES, DUAL_FRACTIONS, B_DUAL)),
                 ("megastep_dual_sec", "multigoal", "dual", MG_KINDS, REG_TERMS,
@@ -3442,6 +3526,113 @@ class Smoke:
         if fails:
             raise AssertionError(f"shapes_main: {fails}")
 
+    # --------------------------------------------------------- native --
+    def native(self):
+        """The port's float64 C++ oracle (``bio_ik_tpu_torch.native``, built
+        with g++ here): the card's float32 FK within NATIVE_ATOL of it on
+        NATIVE_N configurations of each of NATIVE_ROBOTS (position, and the
+        quaternion up to sign), and its support point equal to an argmax of
+        the dot product on the card, on a random hull."""
+        import numpy as np
+        import torch
+        from bio_ik_tpu_torch import RobotModel, asset_path, make_fk, native
+
+        t0 = time.perf_counter()
+        if not native.available():
+            raise AssertionError("the native oracle did not build or load (g++)")
+        out = {"phase": "native", "library": os.path.relpath(native.library_path(), ROOT),
+               "build_s": time.perf_counter() - t0, "configurations": NATIVE_N,
+               "atol": NATIVE_ATOL}
+        for urdf, tips in NATIVE_ROBOTS:
+            m = RobotModel.from_urdf_file(asset_path(urdf))
+            b = m._np_bounds
+            q = np.random.default_rng(0).uniform(b["min"], b["max"], size=(
+                NATIVE_N, m.nvars)).astype(np.float32)
+            pos, quat = native.oracle_fk(m, q, list(tips))
+            f = make_fk(m, list(tips))(torch.as_tensor(q, device=self.dev))
+            gp, gq = f.pos.double().cpu().numpy(), f.quat.double().cpu().numpy()
+            sign = np.sign(np.sum(gq * quat, axis=-1, keepdims=True))
+            out[urdf] = {"tips": list(tips), "pos_max_abs_err": float(np.abs(gp - pos).max()),
+                         "quat_max_abs_err": float(np.abs(gq - sign * quat).max())}
+        rng = np.random.default_rng(1)
+        pts, dirs = rng.normal(size=(4096, 3)), rng.normal(size=(64, 3))
+        got = [native.support_point(pts, d) for d in dirs]
+        want = (torch.as_tensor(pts, device=self.dev) @ torch.as_tensor(
+            dirs, device=self.dev).T).argmax(0).tolist()
+        out["support_point_agree"] = got == want
+        emit(out)
+        errs = [max(out[u]["pos_max_abs_err"], out[u]["quat_max_abs_err"])
+                for u, _ in NATIVE_ROBOTS]
+        if not (max(errs) <= NATIVE_ATOL and out["support_point_agree"]):
+            raise AssertionError(f"the card's FK or the support point disagree with "
+                                 f"the native oracle: {out}")
+
+    # ---------------------------------------------------------- suite --
+    def suite(self):
+        """The JAX suite's ur5_pose and kuka_iiwa_pose rows through the port's
+        ``bench_suite`` (its JSON lines) at B_SUITE, each held to
+        SUITE_LIMITS; ur5_pose's launches are the (6, 1, 1) kernel's."""
+        from bio_ik_tpu_torch.tools import bench_suite
+
+        fails = []
+        for name, (success, median, launches) in SUITE_LIMITS.items():
+            row = bench_suite.run_row(name, batch=B_SUITE)
+            if name == "ur5_pose":
+                self.kernels["megastep_ur5"]["launches"] = row["launches"]
+            if not (row["success_rate"] >= success and row["median_pos_err_m"] <= median
+                    and row["launches"] == launches and row["engine"] == "fused"):
+                fails.append(row)
+        if fails:
+            raise AssertionError(f"suite rows outside their limits {SUITE_LIMITS}: {fails}")
+
+    # ------------------------------------------------------- parallel --
+    def parallel(self):
+        """The sharded solves (``tools/parallel_check``): a world of one over
+        NCCL — the batch-sharded solve of the main configuration at B_MAIN
+        bitwise ``solve_batch``, the fused island-sharded solve of 8 single
+        queries (success ≥ 0.99 without migration, bitwise the single
+        query; and with migration), the island path's at 4 steps bitwise
+        ``IKSolver.solve`` —; then a world of two over gloo on the one card
+        (two spawned processes): the batch-sharded result at B_WORLD_TWO
+        bitwise the halves' ``solve_batch``, the island-sharded solve with
+        migration the same on both ranks and better than the seed.  Each
+        row with its megastep launches and ms."""
+        from bio_ik_tpu_torch.tools import parallel_check
+
+        # NCCL's bootstrap on the loopback device (the machine has no network)
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        rows = parallel_check.world_one("cuda", B=B_MAIN)
+        for row in rows:
+            emit({"phase": "parallel", "world": 1, "backend": "nccl", **row})
+        fused = [r for r in rows if r["row"] == "island_sharded_fused" and not r["migrate"]]
+        self._profile_island_sharded()
+        for row in parallel_check.world_two("cuda", B=B_WORLD_TWO):
+            emit({"phase": "parallel", **row})
+        if fused[0]["success_rate"] < 0.99:
+            raise AssertionError(f"the island-sharded single queries succeed below 0.99: "
+                                 f"{fused}")
+
+    def _profile_island_sharded(self):
+        """Device launches, busy time and idle share of one fused
+        island-sharded query (64 steps) with and without migration, in a
+        world of one over NCCL (:meth:`_profile_call`)."""
+        import torch.distributed as dist
+        from bio_ik_tpu_torch.parallel.distributed import initialize_distributed
+        from bio_ik_tpu_torch.parallel.islands import default_mesh, make_sharded_island_solve
+        from bio_ik_tpu_torch.tools import parallel_check
+
+        initialize_distributed(parallel_check.free_address(), 1, 0)
+        try:
+            p = parallel_check.BenchProblem("cuda", 8)
+            s, mesh = p.solver_with(max_steps=64), default_mesh("islands")
+            key, data = p.query(0)
+            for migrate in (False, True):
+                solve = make_sharded_island_solve(s, mesh, migrate=migrate)
+                emit({"phase": "parallel", "row": "profile_island_sharded_fused",
+                      "migrate": migrate, **self._profile_call(lambda: solve(key, data))})
+        finally:
+            dist.destroy_process_group()
+
     # ------------------------------------------------------------ mfu --
     def mfu(self):
         """Path (d): ``python -m bio_ik_tpu_torch.tools.bench_mfu``'s
@@ -3501,7 +3692,7 @@ class Smoke:
             raise AssertionError(f"bench_mfu measured nothing: {res}")
 
 # phases that launch no hand-written kernel: they run while `build` compiles
-KERNEL_FREE = ("unfused_modes", "other_modes")
+KERNEL_FREE = ("unfused_modes", "other_modes", "native")
 
 
 def timed(table, fn, name):
@@ -3543,10 +3734,10 @@ def time_everything(table):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="build,unfused_modes,other_modes,check,rng,"
+    ap.add_argument("--only", default="build,unfused_modes,other_modes,native,check,rng,"
                     "sec_check,fullstep_check,shapes_check,latency_check,main,"
                     "regularized_main,dual_main,multigoal_main,snake_main,humanoid_main,"
-                    "shapes_main,latency,island_kinds,"
+                    "shapes_main,suite,parallel,latency,island_kinds,"
                     "species_check,species_main,species_sec_main,times,profile,mfu",
                     help="comma-separated phases to run")
     ap.add_argument("--timings", metavar="PATH",
@@ -3601,6 +3792,7 @@ def main():
         **{x: v for x, v in k[name].items() if x not in KERNEL_KEYS})
         for name, src, replaces in (
             ("megastep", "megastep.cu", MEGASTEP_TPU),
+            ("megastep_ur5", "megastep.cu", MEGASTEP_TPU),
             ("megastep_dual", "megastep_wide.cu", MEGASTEP_TPU),
             ("megastep_dual_sec", "megastep_wide.cu", MEGASTEP_TPU),
             ("megastep_snake", "megastep_high.cu", MEGASTEP_TPU),
