@@ -2,15 +2,17 @@
 // per lane in one launch, with the species sort, wipeout and per-lane
 // incumbent bookkeeping between steps.
 //
-// The step, its kernels and their C API, shared by the three sources that
-// instantiate them: csrc/megastep.cu (MEGASTEP_WIDE 0: the pose family on
-// few variables, the lane's linearization in registers), and
-// csrc/megastep_wide.cu and csrc/megastep_high.cu (MEGASTEP_WIDE 1: many
-// variables and tips, every goal kind of the step; the PR2 dual arm, and
-// snake-32 and the 30-DOF humanoid) — and by the source that
-// kernels/bio2_megastep.py::megastep_instance generates, with
-// MEGASTEP_WIDE 1, for any other shape on its first use.  Each source
-// defines SHAPES(X) and GROUPS(X, v, k, t) before including this header.
+// What both layouts share (Params, the quaternion ops, the selection) and
+// the narrow layout's step, kernels and C API: csrc/megastep.cu
+// (MEGASTEP_WIDE 0: the pose family on few variables, one thread a lane,
+// the lane's linearization in registers).  With MEGASTEP_WIDE 1 the step,
+// kernels and C API are those of csrc/megastep_wide.cuh (many variables and
+// tips, every goal kind of the step, a lane over a group of W threads):
+// csrc/megastep_wide.cu (the PR2 dual arm), csrc/megastep_high.cu
+// (snake-32 and the 30-DOF humanoid) and the source that
+// kernels/bio2_megastep.py::megastep_instance generates for any other shape
+// on its first use.  Each source defines SHAPES(X) and GROUPS(X, v, k, t)
+// before including this header.
 //
 // Replaces the TPU kernel bio_ik_tpu/kernels/bio2_megastep.py::
 // make_megastep_kernel (its pl.pallas_call), which inlines
@@ -21,7 +23,7 @@
 // entry point, fullstep_launch, runs one step without the bookkeeping: the
 // port of the TPU kernel bio2_fullstep.py::make_fullstep_kernel.
 //
-// What bounds it on the card: issued instructions, most of them the
+// What bounds the narrow layout on the card: issued instructions, most of them the
 // generator's integer work, and their latency.  For PR2 (V=7, K=1, C=16,
 // gens=8, mem_iters=8) a lane-step does ~23.4k FLOPs (gens·(C+2) +
 // 4·mem_iters linearized fitness evaluations, three exact FK passes) on
@@ -64,22 +66,7 @@
 //   * the two species of an island are adjacent lanes, so the species
 //     compare-swap is __shfl_xor_sync(…, G) (the TPU kernel's
 //     pltpu.roll(±1)); padding threads past N·G read lane N−1, take part in
-//     every shuffle and skip the stores;
-//   * wide instances (MEGASTEP_WIDE; PR2 dual arm: V = 17, K = T = 2;
-//     snake-32: V = 32, K = T = 1, 32 of 32 columns; the humanoid: V = 30,
-//     K = T = 3, 22 of 90 columns):
-//     the lane's linearization ∂tip_t/∂x_v, V·T·7 floats, would not fit in
-//     registers beside the parents, so it lives in shared memory, one
-//     column of 7 rows per (v, t) on which tip t depends (the JAX body
-//     skips the others at trace time: 16 of 34 columns for the dual arm,
-//     each gripper hanging from the torso and its own arm), one copy per
-//     lane that the G threads of its group read; the group's first thread
-//     writes it.  The goal instances evaluate every kind of the step
-//     (pose family, lookat, line, plane, max/min distance, cone,
-//     direction, side; kernels/bio2_fullstep.link_goal), the kind an int
-//     per instance, the same on every lane (the branch does not diverge).
-//     The pose-only step draws its two winners again, as the
-//     secondary-goal step does, instead of keeping two children's genes.
+//     every shuffle and skip the stores.
 // Randomness is counter-based Philox4x32-10 in registers (key (seed, 0),
 // counter (lane, step, generation, draw)), the salt of the lane's scenario
 // XORed into every word, as the TPU kernel did with its hardware PRNG; the
@@ -108,15 +95,8 @@
 #define LINK_F 19      // floats per link
 #define BLOCK 128
 #define MAX_C 16       // children per generation (the rates use 4-bit fields of one call)
-// Resident blocks per SM the register budget is held to: 3 (168
-// registers) for the pose-only kernel at G = 1 and the fullstep kernel, 2
-// (255) for the pose-only kernel at G > 1 and the secondary-goal kernel:
-// each the faster on an H100 (PERF.md §6).
-constexpr int MIN_BLOCKS = 3;
-constexpr int WIDE_MIN_BLOCKS = 2;
 #define FULL 0xffffffffu
 #define NO_CHILD 0x7fffffff
-constexpr bool WIDE = MEGASTEP_WIDE;
 
 enum { SRC_NONE = 0, SRC_ACTIVE = 1, SRC_FIXED = 2, SRC_CONST = 3 };
 enum { J_FIXED = 0, J_REVOLUTE = 1, J_PRISMATIC = 2 };
@@ -143,7 +123,7 @@ struct Params {
   const float* chain_f;
   const int* tip_slot;
   const int* inst_tip;
-  // wide instances: the gaux rows, each instance's kind, the columns of
+  // the wide layout: the gaux rows, each instance's kind, the columns of
   // the linearization (cols: V·T by (v, t), then K·V by (k, v); −1 none)
   const float* gaux;
   const int *inst_kind, *cols;
@@ -158,32 +138,6 @@ __host__ __device__ inline unsigned sec_rows_needed(unsigned mask) {
   if (mask & SECM_GAMMA) r |= (1u << SEC_GAMMA) | (1u << SEC_MID) | (1u << SEC_HSPAN);
   if (mask & SECM_DELTA) r |= (1u << SEC_DELTA) | (1u << SEC_TBAR);
   return r;
-}
-
-// Dynamic shared memory of a block, in 4-byte words: the link table, the
-// branch frames (per thread), the lane rows (per lane: span, cmin, cmax
-// and, with SEC, the 8·V secondary rows, of which those in use are
-// loaded), with SEC each thread's children's secondary and primary
-// fitness, and in wide instances (ncol columns) the lanes' linearization
-// (per lane: ncol·7 rows) and the column table (V·(T + K) ints).
-struct Layout {
-  int link_i, link_f, branch, lane, kids, lin, cols, words;
-};
-
-__host__ __device__ inline Layout layout(int V, int nlinks, int nbranch, int C, int G,
-                                         unsigned sec_mask, int ncol = 0, int K = 0,
-                                         int T = 0) {
-  Layout L;
-  int o = 0;
-  L.link_i = o; o += nlinks * LINK_I;
-  L.link_f = o; o += nlinks * LINK_F;
-  L.branch = o; o += nbranch * 7 * BLOCK;
-  L.lane = o;   o += (sec_mask ? 3 + 8 : 3) * V * (BLOCK / G);
-  L.kids = o;   o += sec_mask ? (C / G) * 2 * BLOCK : 0;
-  L.lin = o;    o += ncol * 7 * (BLOCK / G);
-  L.cols = o;   o += ncol ? V * (T + K) : 0;
-  L.words = o;
-  return L;
 }
 
 // ----------------------------------------------------- quaternion ops --
@@ -206,6 +160,107 @@ __device__ __forceinline__ void qrot(const float* q, const float* v, float* o) {
   o[0] = x; o[1] = y; o[2] = z;
 }
 
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float child_momentum(int c, float p0g, float p0r, float p1r,
+                                                float gv) {
+  const float fmix = ((c + 2) % 2 == 0) ? 0.2f : 0.0f;
+  const float pg = p0r * (1.0f - fmix) + p1r * fmix;
+  return pg * 0.7f + (gv - p0g) * 0.3f;
+}
+
+// Running best two on strict '<' — offered in increasing index, ties keep
+// the earlier one; from (+inf, NO_CHILD), NaN and +inf are never taken.
+__device__ __forceinline__ void offer(float f, int c, float& f1, int& i1, float& f2, int& i2) {
+  if (f < f1) { f2 = f1; i2 = i1; f1 = f; i1 = c; }
+  else if (f < f2) { f2 = f; i2 = c; }
+}
+
+__device__ __forceinline__ bool lex_less(float fa, int ia, float fb, int ib) {
+  return fa < fb || (fa == fb && ia < ib);
+}
+
+// The group's best two children under (f, index) from each thread's own
+// best two: a butterfly of shuffles over the G threads of the lane.  The
+// merge is commutative and associative (distinct indices; empty slots are
+// (+inf, NO_CHILD)), so every thread of the group ends with the same pair.
+template <int G>
+__device__ __forceinline__ void group_best_two(float& f1, int& i1, float& f2, int& i2) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float g1 = __shfl_xor_sync(FULL, f1, off), g2 = __shfl_xor_sync(FULL, f2, off);
+    const int j1 = __shfl_xor_sync(FULL, i1, off), j2 = __shfl_xor_sync(FULL, i2, off);
+    if (lex_less(g1, j1, f1, i1)) {
+      if (lex_less(f1, i1, g2, j2)) { f2 = f1; i2 = i1; } else { f2 = g2; i2 = j2; }
+      f1 = g1; i1 = j1;
+    } else if (lex_less(g1, j1, f2, i2)) {
+      f2 = g1; i2 = j1;
+    }
+  }
+}
+
+// The sequential scan of the reference's first-min pick over the pool p0,
+// p1, child 0..C−1 with strict '<' (bio2_fullstep: select 2 of C+2), given
+// the children's best two (c1 before c2 under (f, index)): p0 first, p1
+// second (swapped when f_p1 < f_p0), then c1, c2 offered in turn.  Offering
+// only the children's best two gives the scan's result: a child outside
+// them is beaten by both in the scan's order, and NaN or +inf children are
+// never taken by the scan either; a NaN p0 (or p1 that stays second) is
+// never displaced, as in the scan.  Returns handles: H_P0, H_P1 or a child.
+__device__ __forceinline__ void select_two(float f_p0, float f_p1, float c1f, int c1,
+                                           float c2f, int c2, float& f1, int& h1,
+                                           float& f2, int& h2) {
+  const bool sw = f_p1 < f_p0;
+  f1 = sw ? f_p1 : f_p0; h1 = sw ? H_P1 : H_P0;
+  f2 = sw ? f_p0 : f_p1; h2 = sw ? H_P0 : H_P1;
+  offer(c1f, c1, f1, h1, f2, h2);
+  offer(c2f, c2, f1, h1, f2, h2);
+}
+
+
+template <typename KF>
+static int prepare(KF kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+#if MEGASTEP_WIDE
+
+#include "megastep_wide.cuh"
+
+#else   // the narrow layout
+
+// Resident blocks per SM the register budget is held to: 3 (168
+// registers) for the pose-only kernel at G = 1 and the fullstep kernel, 2
+// (255) for the pose-only kernel at G > 1 and the secondary-goal kernel:
+// each the faster on an H100 (PERF.md §6).
+constexpr int MIN_BLOCKS = 3;
+constexpr int GROUP_MIN_BLOCKS = 2;
+
+// Dynamic shared memory of a block, in 4-byte words: the link table, the
+// branch frames (per thread), the lane rows (per lane: span, cmin, cmax
+// and, with SEC, the 8·V secondary rows, of which those in use are
+// loaded), with SEC each thread's children's secondary and primary
+// fitness.
+struct Layout {
+  int link_i, link_f, branch, lane, kids, words;
+};
+
+__host__ __device__ inline Layout layout(int V, int nlinks, int nbranch, int C, int G,
+                                         unsigned sec_mask) {
+  Layout L;
+  int o = 0;
+  L.link_i = o; o += nlinks * LINK_I;
+  L.link_f = o; o += nlinks * LINK_F;
+  L.branch = o; o += nbranch * 7 * BLOCK;
+  L.lane = o;   o += (sec_mask ? 3 + 8 : 3) * V * (BLOCK / G);
+  L.kids = o;   o += sec_mask ? (C / G) * 2 * BLOCK : 0;
+  L.words = o;
+  return L;
+}
+
 template <int V>
 __device__ __forceinline__ float pick_var(const float (&x)[V], int idx) {
   float r = x[0];
@@ -214,33 +269,12 @@ __device__ __forceinline__ float pick_var(const float (&x)[V], int idx) {
   return r;
 }
 
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
-// What only a wide instance keeps beside its lane and its goals (empty
-// otherwise: the other source's code is the same as without them).
-template <bool W>
-struct WideLane {};
-template <>
-struct WideLane<true> {
-  float* lin;        // this lane's linearization, column c row r at (7c + r)·ld
-  const int* cols;   // the column table (Params::cols)
-};
-template <bool W, int K>
-struct WideGoals {};
-template <int K>
-struct WideGoals<true, K> {
-  float gaux[K][3];   // axis, line direction or plane normal
-  int kind[K];        // GK_*
-};
-
 // ------------------------------------------------------------ the lane --
 // Where a thread finds its lane: Philox lane n (padding threads past N
 // keep their own n), data lane nn, rank j in the lane's group, the chain
 // and the lane's rows in shared memory.
 template <int V, int T, int G>
-struct Lane : WideLane<WIDE> {
+struct Lane {
   static constexpr int ld = BLOCK / G;   // lanes per block: the lane rows' stride
   int n, nn, j;
   uint32_t salt;
@@ -268,8 +302,7 @@ struct SmemSecRows {
 // Every thread of the block reaches the barrier (padding threads too).
 template <int V, int K, int T, int G>
 __device__ __forceinline__ Lane<V, T, G> enter(const Params& P, float* smem) {
-  const Layout Lo = WIDE ? layout(V, P.nlinks, P.nbranch, P.C, G, P.sec_mask, P.ncol, K, T)
-                         : layout(V, P.nlinks, P.nbranch, P.C, G, P.sec_mask);
+  const Layout Lo = layout(V, P.nlinks, P.nbranch, P.C, G, P.sec_mask);
   const int tid = threadIdx.x;
   const int LPB = BLOCK / G;
   const int lane0 = blockIdx.x * LPB;
@@ -292,10 +325,6 @@ __device__ __forceinline__ Lane<V, T, G> enter(const Params& P, float* smem) {
     else continue;   // a secondary row no term reads
     rows[i] = src[lane];
   }
-  if constexpr (WIDE) {
-    int* cols = reinterpret_cast<int*>(smem) + Lo.cols;
-    for (int i = tid; i < V * (T + K); i += BLOCK) cols[i] = P.cols[i];
-  }
   __syncthreads();
 
   Lane<V, T, G> X;
@@ -309,10 +338,6 @@ __device__ __forceinline__ Lane<V, T, G> enter(const Params& P, float* smem) {
   X.br = smem + Lo.branch + tid;
   X.rows = rows + tid / G;
   X.kids = smem + Lo.kids + tid;
-  if constexpr (WIDE) {
-    X.lin = smem + Lo.lin + tid / G;
-    X.cols = reinterpret_cast<const int*>(smem) + Lo.cols;
-  }
 #pragma unroll
   for (int t2 = 0; t2 < T; ++t2) X.tip_slot[t2] = P.tip_slot[t2];
   return X;
@@ -430,20 +455,12 @@ __device__ __forceinline__ void fk_pass(const Params& P, const Lane<V, T, G>& X,
 #pragma unroll
         for (int c = 0; c < 7; ++c) dd[c] = factor * dd[c];
       }
-      if constexpr (WIDE) {   // the group's first thread writes the lane's column
-        if (X.j == 0) {
-          float* d = X.lin + X.cols[slot * T + t] * 7 * Lane<V, T, G>::ld;
 #pragma unroll
-          for (int c = 0; c < 7; ++c) d[c * Lane<V, T, G>::ld] += dd[c];
+      for (int v = 0; v < V; ++v)
+        if (slot == v) {
+#pragma unroll
+          for (int c = 0; c < 7; ++c) dts[v][t][c] = dts[v][t][c] + dd[c];
         }
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          if (slot == v) {
-#pragma unroll
-            for (int c = 0; c < 7; ++c) dts[v][t][c] = dts[v][t][c] + dd[c];
-          }
-      }
     }
   }
 }
@@ -456,7 +473,7 @@ struct Lin {
 };
 
 template <int V, int K>
-struct Goals : WideGoals<WIDE, K> {
+struct Goals {
   float gpos[K][3], gquat[K][4], wpos[K], wrot[K];
 };
 
@@ -539,238 +556,12 @@ __device__ __forceinline__ float eval_exact(const float (&ph)[K][7], const Goals
   return fit;
 }
 
-// ------------------------------------------ every goal kind (wide) --
-// atan2 for y ≥ 0 by the JAX body's Hastings polynomial
-// (bio2_fullstep._atan2_nonneg), in its operation order.
-__device__ __forceinline__ float atan2_nonneg(float y, float x) {
-  const float ax = fabsf(x);
-  const float mn = fminf(y, ax), mx = fmaxf(y, ax);
-  const float t = mn / (mx + 1e-30f);
-  const float t2 = t * t;
-  const float p = t * (0.9998660f + t2 * (-0.3302995f + t2 * (0.1801410f + t2 * (
-      -0.0851330f + t2 * 0.0208351f))));
-  const float r = (y > ax) ? 1.57079637f - p : p;
-  return (x < 0.0f) ? 3.14159274f - r : r;
-}
-
-// The error of goal instance k from its tip components ph and, with GRAD,
-// d(error)/d(ph) into gv (zero where the kind has no such column: the
-// rotation columns of every kind but the pose family) — the plain
-// version's eval_goals / link_goal, kind by kind in its operation order.
-template <int V, int K, bool GRAD>
-__device__ __forceinline__ float goal_term(const Goals<V, K>& G, int k, const float (&ph)[7],
-                                           float (&gv)[7]) {
-  const float w = G.wpos[k];
-  const float* gp = G.gpos[k];
-  if (GRAD) {
-#pragma unroll
-    for (int c = 0; c < 7; ++c) gv[c] = 0.0f;
-  }
-  switch (G.kind[k]) {
-    case GK_LOOKAT: {   // ‖normalize(target − p) − normalize(R·axis)‖²
-      float u[3];
-      qrot(ph + 3, G.gaux[k], u);
-      const float uinv = rsqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + 1e-12f);
-      const float dx[3] = {gp[0] - ph[0], gp[1] - ph[1], gp[2] - ph[2]};
-      const float dinv = rsqrtf(dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2] + 1e-12f);
-      float n[3], e[3], err = 0.0f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        n[d] = dx[d] * dinv;
-        e[d] = n[d] - u[d] * uinv;
-        err = err + e[d] * e[d];
-      }
-      if (GRAD) {
-        float sd = 0.0f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) sd = sd + n[d] * e[d];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) gv[d] = w * (-2.0f * dinv) * (e[d] - n[d] * sd);
-      }
-      return w * err;
-    }
-    case GK_LINE: {     // ‖(p − o) − d·((p − o)·d)‖²
-      const float* ax = G.gaux[k];
-      const float dx[3] = {ph[0] - gp[0], ph[1] - gp[1], ph[2] - gp[2]};
-      const float along = dx[0] * ax[0] + dx[1] * ax[1] + dx[2] * ax[2];
-      const float pp[3] = {dx[0] - ax[0] * along, dx[1] - ax[1] * along,
-                           dx[2] - ax[2] * along};
-      if (GRAD) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) gv[d] = 2.0f * w * pp[d];
-      }
-      return w * (pp[0] * pp[0] + pp[1] * pp[1] + pp[2] * pp[2]);
-    }
-    case GK_PLANE: {    // ((p − o)·n)²
-      const float* ax = G.gaux[k];
-      float sd = 0.0f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) sd = sd + (ph[d] - gp[d]) * ax[d];
-      if (GRAD) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) gv[d] = 2.0f * w * sd * ax[d];
-      }
-      return w * (sd * sd);
-    }
-    case GK_MAXD:
-    case GK_MIND: {     // relu(±(|p − t| − dist))², dist in the wrot row
-      const float dx[3] = {ph[0] - gp[0], ph[1] - gp[1], ph[2] - gp[2]};
-      const float nrm2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
-      const float rinv = rsqrtf(nrm2 + 1e-12f);
-      const float sgn = G.kind[k] == GK_MAXD ? 1.0f : -1.0f;
-      const float dd = fmaxf(sgn * (nrm2 * rinv - G.wrot[k]), 0.0f);
-      if (GRAD) {
-        const float c = 2.0f * sgn * w * dd * rinv;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) gv[d] = c * dx[d];
-      }
-      return w * (dd * dd);
-    }
-    case GK_CONE: {     // max(0, ∠(R·axis, dir) − angle)² + pw·‖apex − p‖²
-      float v[3];
-      qrot(ph + 3, G.gaux[k], v);
-      const float* dr = G.gquat[k];   // [dir, angle]
-      const float cx = v[1] * dr[2] - v[2] * dr[1];
-      const float cy = v[2] * dr[0] - v[0] * dr[2];
-      const float cz = v[0] * dr[1] - v[1] * dr[0];
-      const float cn = sqrtf(cx * cx + cy * cy + cz * cz + 1e-18f);
-      const float dot = v[0] * dr[0] + v[1] * dr[1] + v[2] * dr[2];
-      const float dd = fmaxf(atan2_nonneg(cn, dot) - dr[3], 0.0f);
-      float pe = 0.0f;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float e = gp[d] - ph[d];
-        pe = pe + e * e;
-      }
-      if (GRAD) {
-        const float c = 2.0f * w * G.wrot[k];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) gv[d] = c * (ph[d] - gp[d]);
-      }
-      return w * (dd * dd + G.wrot[k] * pe);
-    }
-    case GK_DIRECTION:
-    case GK_SIDE: {     // ‖R·axis − dir‖², relu(R·axis · dir)²; no gradient
-      float v[3];
-      qrot(ph + 3, G.gaux[k], v);
-      float err = 0.0f;
-      if (G.kind[k] == GK_DIRECTION) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const float e = v[d] - gp[d];
-          err = err + e * e;
-        }
-      } else {
-        float f = 0.0f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) f = f + v[d] * gp[d];
-        f = fmaxf(f, 0.0f);
-        err = f * f;
-      }
-      return w * err;
-    }
-    default: {          // the pose family
-      float perr = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float e = ph[c] - gp[c];
-        perr = perr + e * e;
-      }
-      float dm = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float q = ph[3 + c], g = G.gquat[k][c];
-        dm = dm + (q - g) * (q - g);
-        dp = dp + (q + g) * (q + g);
-      }
-      if (GRAD) {
-        float sgn = (dm <= dp) ? 1.0f : -1.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) gv[c] = 2.0f * w * (ph[c] - gp[c]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          gv[3 + c] = 2.0f * G.wrot[k] * (ph[3 + c] - sgn * G.gquat[k][c]);
-      }
-      return w * perr + G.wrot[k] * fminf(dm, dp);
-    }
-  }
-}
-
-// Linearized fitness of genes x in a wide instance (eval_lin with the
-// lane's columns in shared memory; column −1: no dependency, skipped as
-// in the plain version).  The loops over the columns unroll fully up to
-// 24 variables and by 4 above: fully unrolled at V = 30–32 they doubled
-// the kernels' nvcc time and ran no faster (PERF.md §6).
-template <int V, int K, int T, int G, bool GRAD>
-__device__ __forceinline__ float eval_lin_w(const Lane<V, T, G>& X, const float (&base)[K][7],
-                                            const Goals<V, K>& GL, const float (&x)[V],
-                                            const float (&x0)[V], float (&grad)[V]) {
-  constexpr int ld = Lane<V, T, G>::ld;
-  const int* kcol = X.cols + V * T;   // (k, v) → column
-  float dq[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) dq[v] = x[v] - x0[v];
-  float fit = 0.0f;
-#pragma unroll
-  for (int v = 0; v < V; ++v) grad[v] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float ph[7];
-#pragma unroll
-    for (int c = 0; c < 7; ++c) ph[c] = base[k][c];
-#pragma unroll (V > 24 ? 4 : V)
-    for (int v = 0; v < V; ++v) {
-      const int col = kcol[k * V + v];
-      if (col < 0) continue;
-      const float* d = X.lin + col * 7 * ld;
-#pragma unroll
-      for (int c = 0; c < 7; ++c) ph[c] = ph[c] + d[c * ld] * dq[v];
-    }
-    float gv[7];
-    const float term = goal_term<V, K, GRAD>(GL, k, ph, gv);
-    fit = (k == 0) ? term : fit + term;
-    if (GRAD) {
-#pragma unroll (V > 24 ? 4 : V)
-      for (int v = 0; v < V; ++v) {
-        const int col = kcol[k * V + v];
-        if (col < 0) continue;
-        const float* d = X.lin + col * 7 * ld;
-#pragma unroll
-        for (int c = 0; c < 7; ++c) grad[v] = grad[v] + d[c * ld] * gv[c];
-      }
-    }
-  }
-  return fit;
-}
-
-// Exact fitness of the tip frames in a wide instance.
-template <int V, int K, int T>
-__device__ __forceinline__ float eval_exact_w(const float (&tips)[T][7], const Goals<V, K>& GL,
-                                              const int (&inst_tip)[K]) {
-  float fit = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float ph[7], gv[7];
-#pragma unroll
-    for (int t = 0; t < T; ++t)
-      if (inst_tip[k] == t) {
-#pragma unroll
-        for (int c = 0; c < 7; ++c) ph[c] = tips[t][c];
-      }
-    const float term = goal_term<V, K, false>(GL, k, ph, gv);
-    fit = (k == 0) ? term : fit + term;
-  }
-  return fit;
-}
-
-// The step's linearized fitness: the lane's columns in shared memory
-// (wide) or the Lin rows in registers.
+// The step's linearized fitness: the Lin rows in registers.
 template <int V, int K, int T, int G, bool GRAD>
 __device__ __forceinline__ float lin_fit(const Lane<V, T, G>& X, const Lin<V, K>& L,
                                          const Goals<V, K>& GL, const float (&x)[V],
                                          const float (&x0)[V], float (&grad)[V]) {
-  if constexpr (WIDE) return eval_lin_w<V, K, T, G, GRAD>(X, L.base, GL, x, x0, grad);
-  else return eval_lin<V, K, GRAD>(L, GL, x, x0, grad);
+  return eval_lin<V, K, GRAD>(L, GL, x, x0, grad);
 }
 
 // ---------------------------------------------------------- children --
@@ -819,61 +610,6 @@ __device__ __forceinline__ void child_genes(const Params& P, const Lane<V, T, G>
   }
 }
 
-__device__ __forceinline__ float child_momentum(int c, float p0g, float p0r, float p1r,
-                                                float gv) {
-  const float fmix = ((c + 2) % 2 == 0) ? 0.2f : 0.0f;
-  const float pg = p0r * (1.0f - fmix) + p1r * fmix;
-  return pg * 0.7f + (gv - p0g) * 0.3f;
-}
-
-// Running best two on strict '<' — offered in increasing index, ties keep
-// the earlier one; from (+inf, NO_CHILD), NaN and +inf are never taken.
-__device__ __forceinline__ void offer(float f, int c, float& f1, int& i1, float& f2, int& i2) {
-  if (f < f1) { f2 = f1; i2 = i1; f1 = f; i1 = c; }
-  else if (f < f2) { f2 = f; i2 = c; }
-}
-
-__device__ __forceinline__ bool lex_less(float fa, int ia, float fb, int ib) {
-  return fa < fb || (fa == fb && ia < ib);
-}
-
-// The group's best two children under (f, index) from each thread's own
-// best two: a butterfly of shuffles over the G threads of the lane.  The
-// merge is commutative and associative (distinct indices; empty slots are
-// (+inf, NO_CHILD)), so every thread of the group ends with the same pair.
-template <int G>
-__device__ __forceinline__ void group_best_two(float& f1, int& i1, float& f2, int& i2) {
-#pragma unroll
-  for (int off = 1; off < G; off <<= 1) {
-    const float g1 = __shfl_xor_sync(FULL, f1, off), g2 = __shfl_xor_sync(FULL, f2, off);
-    const int j1 = __shfl_xor_sync(FULL, i1, off), j2 = __shfl_xor_sync(FULL, i2, off);
-    if (lex_less(g1, j1, f1, i1)) {
-      if (lex_less(f1, i1, g2, j2)) { f2 = f1; i2 = i1; } else { f2 = g2; i2 = j2; }
-      f1 = g1; i1 = j1;
-    } else if (lex_less(g1, j1, f2, i2)) {
-      f2 = g1; i2 = j1;
-    }
-  }
-}
-
-// The sequential scan of the reference's first-min pick over the pool p0,
-// p1, child 0..C−1 with strict '<' (bio2_fullstep: select 2 of C+2), given
-// the children's best two (c1 before c2 under (f, index)): p0 first, p1
-// second (swapped when f_p1 < f_p0), then c1, c2 offered in turn.  Offering
-// only the children's best two gives the scan's result: a child outside
-// them is beaten by both in the scan's order, and NaN or +inf children are
-// never taken by the scan either; a NaN p0 (or p1 that stays second) is
-// never displaced, as in the scan.  Returns handles: H_P0, H_P1 or a child.
-__device__ __forceinline__ void select_two(float f_p0, float f_p1, float c1f, int c1,
-                                           float c2f, int c2, float& f1, int& h1,
-                                           float& f2, int& h2) {
-  const bool sw = f_p1 < f_p0;
-  f1 = sw ? f_p1 : f_p0; h1 = sw ? H_P1 : H_P0;
-  f2 = sw ? f_p0 : f_p1; h2 = sw ? H_P0 : H_P1;
-  offer(c1f, c1, f1, h1, f2, h2);
-  offer(c2f, c2, f1, h1, f2, h2);
-}
-
 // ------------------------------------------------------------- the step --
 // One whole bio2 step of the lane (bio2_fullstep.make_fullstep_inner):
 // exact FK and linearization at parent 0, `gens` generations, the memetic
@@ -906,23 +642,15 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
 #pragma unroll
   for (int v = 0; v < V; ++v) x0[v] = p0g[v];
   float tips0[T][7];
-  float dts[V][T][7];   // the linearization in registers (not wide)
-  if constexpr (!WIDE) {
+  float dts[V][T][7];   // the linearization in registers
 #pragma unroll
-    for (int v = 0; v < V; ++v)
+  for (int v = 0; v < V; ++v)
 #pragma unroll
-      for (int t = 0; t < T; ++t)
+    for (int t = 0; t < T; ++t)
 #pragma unroll
-        for (int c = 0; c < 7; ++c) dts[v][t][c] = 0.0f;
-  }
+      for (int c = 0; c < 7; ++c) dts[v][t][c] = 0.0f;
   fk_pass<V, T, G, false>(P, X, x0, tips0, dts);
-  if constexpr (WIDE) {   // the lane's columns to 0 once its group is done with them
-    if constexpr (G > 1) __syncwarp();
-    if (X.j == 0)
-      for (int i = 0; i < P.ncol * 7; ++i) X.lin[i * X.ld] = 0.0f;
-  }
   fk_pass<V, T, G, true>(P, X, x0, tips0, dts);
-  if constexpr (WIDE && G > 1) __syncwarp();   // the columns, written, to the group
   Lin<V, K> L;
 #pragma unroll
   for (int k = 0; k < K; ++k)
@@ -932,10 +660,8 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
 #pragma unroll
         for (int c = 0; c < 7; ++c) {
           L.base[k][c] = tips0[t][c];
-          if constexpr (!WIDE) {
 #pragma unroll
-            for (int v = 0; v < V; ++v) L.d[v][k][c] = dts[v][t][c];
-          }
+          for (int v = 0; v < V; ++v) L.d[v][k][c] = dts[v][t][c];
         }
       }
 
@@ -955,7 +681,7 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
     // this thread's best two children, c ≡ j (mod G)
     float lf1 = __int_as_float(0x7f800000), lf2 = lf1;
     int li1 = NO_CHILD, li2 = NO_CHILD;
-    float lb1[V], lb2[V];   // their genes (pose-only, not wide)
+    float lb1[V], lb2[V];   // their genes (pose-only)
 #pragma unroll
     for (int v = 0; v < V; ++v) lb1[v] = lb2[v] = 0.0f;
     if constexpr (!SEC) {
@@ -965,16 +691,12 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
         const float f = lin_fit<V, K, T, G, false>(X, L, GL, cgn, x0, gtmp);
         if (f < lf1) {
           lf2 = lf1; li2 = li1; lf1 = f; li1 = c;
-          if constexpr (!WIDE) {
 #pragma unroll
-            for (int v = 0; v < V; ++v) { lb2[v] = lb1[v]; lb1[v] = cgn[v]; }
-          }
+          for (int v = 0; v < V; ++v) { lb2[v] = lb1[v]; lb1[v] = cgn[v]; }
         } else if (f < lf2) {
           lf2 = f; li2 = c;
-          if constexpr (!WIDE) {
 #pragma unroll
-            for (int v = 0; v < V; ++v) lb2[v] = cgn[v];
-          }
+          for (int v = 0; v < V; ++v) lb2[v] = cgn[v];
         }
       }
     } else {
@@ -1044,7 +766,7 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
     for (int w = 0; w < 2; ++w) {
       const int h = w ? h2 : h1;
       const int hc = h < 0 ? 0 : h;
-      if constexpr (SEC || WIDE) {
+      if constexpr (SEC) {
         child_genes<V, T, G>(P, X, step, g, hc, rate(hc), p0g, p0r, p1r, wg[w]);
       } else {
 #pragma unroll
@@ -1130,7 +852,6 @@ __device__ __forceinline__ float bio2_step(const Params& P, const Lane<V, T, G>&
 
   // ---- exact FK + species fitness at the new parent 0 ----
   fk_pass<V, T, G, false>(P, X, p0g, tips, dts);
-  if constexpr (WIDE) return eval_exact_w<V, K, T>(tips, GL, inst_tip);
   float ph[K][7];
 #pragma unroll
   for (int k = 0; k < K; ++k)
@@ -1165,11 +886,6 @@ __device__ __forceinline__ void load_lane(const Params& P, int nn,
     for (int c = 0; c < 4; ++c) G.gquat[k][c] = P.gquat[(k * 4 + c) * N + nn];
     G.wpos[k] = P.wpos[k * N + nn];
     G.wrot[k] = P.wrot[k * N + nn];
-    if constexpr (WIDE) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) G.gaux[k][c] = P.gaux[(k * 3 + c) * N + nn];
-      G.kind[k] = P.inst_kind[k];
-    }
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) inst_tip[k] = P.inst_tip[k];
@@ -1279,14 +995,14 @@ __device__ __forceinline__ void megastep_body(const Params& P) {
 
 // The pose-only megastep (bench.py's path).
 template <int V, int K, int T, int G>
-__global__ void __launch_bounds__(BLOCK, G == 1 && !WIDE ? MIN_BLOCKS : WIDE_MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK, G == 1 ? MIN_BLOCKS : GROUP_MIN_BLOCKS)
 megastep_kernel(const Params P) {
   megastep_body<V, K, T, false, G>(P);
 }
 
 // The megastep with joint-space secondary goals.
 template <int V, int K, int T, int G>
-__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK, GROUP_MIN_BLOCKS)
 megastep_sec_kernel(const Params P) {
   megastep_body<V, K, T, true, G>(P);
 }
@@ -1295,7 +1011,7 @@ megastep_sec_kernel(const Params P) {
 // no species bookkeeping, pose family without secondary goals as there;
 // Philox step word 0; one thread per lane.
 template <int V, int K, int T>
-__global__ void __launch_bounds__(BLOCK, WIDE ? WIDE_MIN_BLOCKS : MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 fullstep_kernel(const Params P) {
   extern __shared__ float smem[];
   const Lane<V, T, 1> X = enter<V, K, T, 1>(P, smem);
@@ -1335,17 +1051,12 @@ fullstep_kernel(const Params P) {
 // rows; 2 had no gaux, inst_kind, cols, ncol.
 extern "C" int megastep_abi_version() { return 3; }
 
-// Dynamic shared memory of one block, bytes (ncol: the linearization's
-// columns of a wide instance, else 0).
+// Dynamic shared memory of one block, bytes (ncol, K, T: the wide layout's
+// arguments, not read here).
 extern "C" int megastep_smem_bytes(int V, int nlinks, int nbranch, int C, int G,
                                    unsigned int sec_mask, int ncol, int K, int T) {
-  return layout(V, nlinks, nbranch, C, G, sec_mask, ncol, K, T).words * 4;
-}
-
-template <typename KF>
-static int prepare(KF kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  (void)ncol; (void)K; (void)T;
+  return layout(V, nlinks, nbranch, C, G, sec_mask).words * 4;
 }
 
 // Resident blocks per SM of a megastep instance at `smem` bytes: 0 blocks
@@ -1399,10 +1110,9 @@ extern "C" int megastep_launch(
     const int* chain_i, const float* chain_f, const int* tip_slot,
     const int* inst_tip, const float* gaux, const int* inst_kind, const int* cols,
     int ncol, void* stream) {
-  if (N <= 0 || (N & 1) || nlinks > MAX_LINKS || C <= 0 || C > MAX_C || C % G ||
-      (WIDE && ncol <= 0))
+  if (N <= 0 || (N & 1) || nlinks > MAX_LINKS || C <= 0 || C > MAX_C || C % G)
     return (int)cudaErrorInvalidValue;
-  if (!WIDE) ncol = 0;
+  ncol = 0;
   Params P{N, nlinks, nbranch, n_steps, gens, C, mem_iters, memetic, rng_mode, h, seed,
            sec_mask, salt, genes, grads, sfit, sol, sol_fit, sol_tips,
            genes_o, grads_o, sfit_o, sol_o, sol_fit_o, sol_tips_o, nullptr, nullptr,
@@ -1443,9 +1153,9 @@ extern "C" int fullstep_launch(
     float* tips_o, float* fit_o, const int* chain_i, const float* chain_f,
     const int* tip_slot, const int* inst_tip, const float* gaux, const int* inst_kind,
     const int* cols, int ncol, void* stream) {
-  if (N <= 0 || nlinks > MAX_LINKS || C <= 0 || C > MAX_C || (WIDE && ncol <= 0))
+  if (N <= 0 || nlinks > MAX_LINKS || C <= 0 || C > MAX_C)
     return (int)cudaErrorInvalidValue;
-  if (!WIDE) ncol = 0;
+  ncol = 0;
   Params P{N, nlinks, nbranch, 1, gens, C, mem_iters, memetic, rng_mode, h, seed, 0u,
            salt, genes, grads, nullptr, nullptr, nullptr, nullptr,
            genes_o, grads_o, nullptr, nullptr, nullptr, nullptr, tips_o, fit_o,
@@ -1454,7 +1164,7 @@ extern "C" int fullstep_launch(
            gaux, inst_kind, cols, ncol};
   dim3 grid((N + BLOCK - 1) / BLOCK), block(BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)megastep_smem_bytes(V, nlinks, nbranch, C, 1, 0u, ncol, K, T);
+  const size_t smem = (size_t)megastep_smem_bytes(V, nlinks, nbranch, C, 1, 0u, 0, K, T);
 #define LAUNCH(v, k, t)                                                            \
   if (V == v && K == k && T == t) {                                                \
     int e;                                                                         \
@@ -1466,3 +1176,5 @@ extern "C" int fullstep_launch(
 #undef LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+
+#endif   // MEGASTEP_WIDE

@@ -21,9 +21,11 @@ Two randomness modes, in both versions:
   * in-kernel Philox (seed + per-lane salt), the mode of the solve.  The
     plain version draws the identical bits (:func:`philox_draw`).
 
-On the card a lane's children are split over a group of G threads
-(:func:`choose_group`, from the lane count and the kernel's occupancy); the
-draws, and so the results, do not depend on G.
+On the card a lane runs on a group of threads: in the narrow layout its
+children are split over G threads (:func:`choose_group`), in the wide one
+its whole step over W threads (:func:`choose_width`), each chosen from the
+lane count and the kernel's occupancy; the draws, and so the results, do
+not depend on G or W.
 
 With joint-space secondary goals (``sec_terms``) the consts end with the
 packed ``sec (8V, N)`` rows and each generation draws one more uniform, the
@@ -32,13 +34,14 @@ Goal instances of the other kinds (``inst_kind``: lookat, line, plane, …;
 :data:`bio2_fullstep.LINK_KINDS`) bring the ``gaux (3K, N)`` const after
 ``gquat`` where one of them needs it (:data:`bio2_fullstep.AUX_KINDS`).
 
-Three CUDA sources share the step (``csrc/megastep.cuh``):
-``csrc/megastep.cu`` holds the pose-family instances of few variables,
-whose lane linearization lives in registers, and ``csrc/megastep_wide.cu``
-(the PR2 dual arm) and ``csrc/megastep_high.cu`` (snake-32, the 30-DOF
-humanoid) the instances of many variables and tips, whose linearization
-lives in shared memory by dependency column and which evaluate every goal
-kind (:data:`MEGASTEP_SOURCES`).  Any other (V, K, T), and a narrow shape
+Two layouts of the step: ``csrc/megastep.cu`` holds the pose-family
+instances of few variables, a lane on one thread with its linearization in
+registers (``csrc/megastep.cuh``); ``csrc/megastep_wide.cu`` (the PR2 dual
+arm) and ``csrc/megastep_high.cu`` (snake-32, the 30-DOF humanoid) the
+instances of many variables and tips, which evaluate every goal kind, a
+lane on a group of W threads with its vectors, its linearization by
+dependency column and its frames in shared memory (``csrc/megastep_wide.cuh``;
+:data:`MEGASTEP_SOURCES`).  Any other (V, K, T), and a narrow shape
 with a goal kind outside the pose family, gets an instance of the wide
 layout generated and built on its first use (:func:`megastep_instance`,
 ``kernels/build.generate``): one ``nvcc`` per shape, cached under
@@ -52,6 +55,7 @@ kernel ``make_fullstep_kernel``): one bio2 step, a second entry point of
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -76,37 +80,39 @@ from .fk_rows import FkRows
 
 __all__ = ["make_megastep_body", "array_draw", "philox_draw", "philox_wipe",
            "Megastep", "Fullstep", "megastep_flops_per_lane", "fullstep_bytes_per_lane",
-           "philox_calls_per_lane_step", "clt4_calls", "choose_group",
+           "philox_calls_per_lane_step", "clt4_calls", "choose_group", "choose_width",
+           "wide_widths",
            "MEGASTEP_SOURCES", "MEGASTEP_GROUPS", "KIND_CODE", "dependency_columns",
            "MegastepInstance", "megastep_instance", "megastep_smem_bytes"]
 
 # (V, K, T) instances of each megastep source (its SHAPES macro), each for
-# every group size G of the source's GROUPS macro; the wide and high-DOF
-# sources' instances evaluate every goal kind of the step, the other's the
-# pose family.  The wide source leaves out G = 8, which choose_group picks
-# at no launch of its paths (each of its kernels takes ~20 s of nvcc); the
-# high-DOF source builds G = 2 alone (csrc/megastep_high.cu says why)
+# every group size of the source's GROUPS macro: G threads a lane's
+# children in the narrow source, W threads a lane in the wide layout (the
+# wide and high-DOF sources, whose instances evaluate every goal kind of
+# the step; :func:`wide_widths`)
 MEGASTEP_SOURCES = {"megastep": ((7, 1, 1), (6, 1, 1)),
                     "megastep_wide": ((17, 2, 2),),
                     "megastep_high": ((32, 1, 1), (30, 3, 3))}
-MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (1, 2, 4),
-                   "megastep_high": (2,)}
-# the group sizes a generated instance builds: G = 2 alone from 24
-# variables on (the high-DOF source's rule: at V = 30-32 G = 2 ran faster
-# than G = 4 at every launch shape, and G = 1 holds one block per SM or
-# does not fit with secondary goals), else those of the wide source — G = 4
-# for a ladder's small last launches, at 15–26 s of nvcc for the seven
-# kernels of a (7, 2, 1) instance on an H100's host (PERF.md §6)
-GEN_GROUPS, GEN_GROUPS_HIGH, GEN_HIGH_V = (1, 2, 4), (2,), 24
+MEGASTEP_GROUPS = {"megastep": (1, 2, 4, 8), "megastep_wide": (4, 8, 16),
+                   "megastep_high": (8, 16)}
+# the widths W a generated instance of the wide layout builds: those of the
+# high-DOF source from GEN_HIGH_V variables on, of the wide source from
+# GEN_MID_V, else GEN_GROUPS (wide_widths; each the fastest there on an
+# H100, PERF.md §6)
+GEN_GROUPS, GEN_MID_V, GEN_HIGH_V = (4, 8), 12, 24
 # the kernel's code of each goal kind (csrc/megastep.cuh GK_*)
 KIND_CODE = {**dict.fromkeys(POSE_KINDS, 0),
              **{k: i + 1 for i, k in enumerate(LINK_KINDS)}}
-_BLOCK = 128          # threads per block (csrc/megastep.cu BLOCK)
+_BLOCK = 128          # threads per block (csrc/megastep.cuh BLOCK)
 _MAX_C = 16           # children per generation the kernel takes (MAX_C)
 # share of a G = 1 lane-step that every thread of a group repeats (the FK,
 # the memetic search, the bookkeeping): 0.26 from the pose-only kernel's
 # phase-1 times at G = 1 and 2 on an H100 (PERF.md §6)
 _REPEATED = 0.26
+# the wide layout's lane-step latency, a full card's worth of lanes in
+# flight, is this many times longer at W than at 2W (1.3–1.75 over the
+# paths' first launches on an H100, PERF.md §6)
+_WIDE_HALVING = 1.5
 
 _LINK_I, _LINK_F = 7, 19   # ints and floats per link of the table (LINK_I, LINK_F)
 
@@ -138,6 +144,35 @@ def philox_calls_per_lane_step(sp: SpeciesParams) -> int:
     return sp.gens * (sp.C * clt4_calls(sp.V) + 1) + (sp.V + 4) // 4
 
 
+def wide_widths(V: int) -> tuple:
+    """The group widths W a generated instance of the wide layout builds at
+    ``V`` variables: the high-DOF source's from :data:`GEN_HIGH_V`, the wide
+    source's from :data:`GEN_MID_V`, else :data:`GEN_GROUPS`."""
+    return (MEGASTEP_GROUPS["megastep_high"] if V >= GEN_HIGH_V else
+            MEGASTEP_GROUPS["megastep_wide"] if V >= GEN_MID_V else GEN_GROUPS)
+
+
+def choose_width(N: int, resident) -> int:
+    """The group width W of a wide-layout launch on ``N`` lanes: the W
+    (among the keys of ``resident`` with at least one resident block) of
+    least estimated time ``waves(W) · h^(−log2 W)``: ``waves(W)`` the rounds
+    of ``resident[W]`` blocks (blocks per SM · SMs) its ``N·W`` threads
+    need, and a lane-step's latency falling by ``h`` (:data:`_WIDE_HALVING`)
+    as W doubles; ties to the smaller W.  Raises ValueError when no W
+    fits."""
+    best = None
+    for w in sorted(resident):
+        if resident[w] < 1:
+            continue
+        blocks = -(-N * w // _BLOCK)
+        est = -(-blocks // resident[w]) * _WIDE_HALVING ** -math.log2(w)
+        if best is None or est < best[0] - 1e-9:
+            best = (est, w)
+    if best is None:
+        raise ValueError(f"no group width fits (resident blocks by W: {resident})")
+    return best[1]
+
+
 def choose_group(N: int, resident, C: int = _MAX_C) -> int:
     """The group size G of a launch on ``N`` lanes: the G (dividing C, among
     the keys of ``resident`` with at least one resident block) of least
@@ -158,20 +193,47 @@ def choose_group(N: int, resident, C: int = _MAX_C) -> int:
     return best[1]
 
 
+def _sec_rows(sec_mask: int) -> int:
+    """How many of the 8 secondary rows the terms of ``sec_mask`` read (a
+    copy of ``sec_rows_needed`` in ``csrc/megastep.cuh``: alpha reads alpha
+    and mid, beta beta and seed, gamma gamma, mid and hspan, delta delta and
+    tbar)."""
+    rows = set()
+    for bit, names in ((1, "alpha mid"), (2, "beta seed"), (4, "gamma mid hspan"),
+                       (8, "delta tbar")):
+        if sec_mask & bit:
+            rows.update(names.split())
+    return len(rows)
+
+
 def megastep_smem_bytes(V: int, nlinks: int, nbranch: int, C: int, G: int,
                         sec_mask: int, ncol: int = 0, K: int = 0, T: int = 0) -> int:
-    """Dynamic shared memory of one megastep block, bytes: a copy of
-    ``layout()`` in ``csrc/megastep.cuh`` (``ncol`` the wide layout's
-    linearization columns, 0 in the narrow one) — the link table, the
+    """Dynamic shared memory of one megastep block, bytes, at group size
+    ``G`` (the width W in the wide layout).  ``ncol`` 0: the narrow layout,
+    a copy of ``layout()`` in ``csrc/megastep.cuh`` — the link table, the
     branch frames per thread, the lane rows per lane (span, cmin, cmax and,
-    with secondary terms, the 8·V secondary rows), with secondary terms
-    each thread's children's two fitness values, the lanes' linearization
-    columns and the column table."""
+    with secondary terms, the 8·V secondary rows), with secondary terms each
+    thread's children's two fitness values.  ``ncol`` > 0 (the wide
+    layout's linearization columns): a copy of ``wide_layout()`` in
+    ``csrc/megastep_wide.cuh`` — the block tables (the link table, two ints a
+    link, the column table, each goal instance's column count and list, the
+    goal instances' kinds and tips, the tips' slots), then one region a lane
+    of an odd number of words: 8 rows of V, the secondary rows its terms
+    read, the incumbent, the children's block (max(C, 13) rows of V | 1, or
+    the link frames where those take more), the linearization, the tips, the goal
+    rows, two vectors' tip components, the goal gradient, two vectors' goal
+    terms, the children's secondary fitness and eight scalars."""
+    if ncol:
+        lane = (8 * V + _sec_rows(sec_mask) * V + V + 7 * T
+                + max(max(C, 13) * (V | 1), 7 * nlinks) + 7 * ncol + 7 * T + 12 * K
+                + 14 * K + 7 * K + 2 * K + (C if sec_mask else 0) + 8) | 1
+        block = (nlinks * (_LINK_I + _LINK_F + 2) + V * (T + K) + K + K * V
+                 + 2 * K + T)
+        return 4 * (block + lane * (_BLOCK // G))
     lanes = _BLOCK // G
     words = (nlinks * (_LINK_I + _LINK_F) + nbranch * 7 * _BLOCK
              + (3 + 8 * bool(sec_mask)) * V * lanes
-             + (C // G * 2 * _BLOCK if sec_mask else 0)
-             + ncol * 7 * lanes + (V * (T + K) if ncol else 0))
+             + (C // G * 2 * _BLOCK if sec_mask else 0))
     return 4 * words
 
 
@@ -204,9 +266,8 @@ def megastep_instance(V: int, K: int, T: int, kinds, sec_mask: int, chain,
     ``kinds`` and the secondary terms of ``sec_mask``: the prebuilt source
     of :data:`MEGASTEP_SOURCES` that has the shape (the narrow ``megastep``
     source for the pose family only), else an instance of the wide layout
-    generated for the shape, at the group sizes of :data:`GEN_GROUPS`
-    (:data:`GEN_GROUPS_HIGH` from :data:`GEN_HIGH_V` variables) whose block
-    fits.  ``chain`` is ``(nlinks, nbranch, ncol)`` of the problem's link
+    generated for the shape, at the widths of :func:`wide_widths` whose
+    block fits.  ``chain`` is ``(nlinks, nbranch, ncol)`` of the problem's link
     table and dependency columns, which size the block: a generated
     instance leaves out the group sizes whose block exceeds the card's
     shared memory (:data:`bio2_step.SMEM_OPTIN`), and a ValueError naming
@@ -219,12 +280,11 @@ def megastep_instance(V: int, K: int, T: int, kinds, sec_mask: int, chain,
         if (V, K, T) in shapes and (src != "megastep" or pose_only):
             inst = MegastepInstance(src, src != "megastep", MEGASTEP_GROUPS[src], False)
             break
-    candidates = inst.groups if inst else (GEN_GROUPS_HIGH if V >= GEN_HIGH_V
-                                           else GEN_GROUPS)
+    candidates = inst.groups if inst else wide_widths(V)
     nlinks, nbranch, ncol = chain
     ncol = ncol if (inst is None or inst.wide) else 0
     smem = {g: megastep_smem_bytes(V, nlinks, nbranch, C, g, sec_mask, ncol, K, T)
-            for g in candidates if C % g == 0}
+            for g in candidates if ncol or C % g == 0}
     fits = tuple(g for g, b in smem.items() if b <= SMEM_OPTIN)
     if not fits:
         raise ValueError(
@@ -533,17 +593,20 @@ class _StepKernel:
 
     def group(self, lib, dev, N: int) -> int:
         """The group size of a launch on N lanes (:func:`choose_group` over
-        the group sizes that fit)."""
+        the group sizes that fit; :func:`choose_width` in the wide
+        layout)."""
         if (dev, N) not in self._groups:
+            wide = self.instance.wide
             resident = {g: self.resident_blocks(lib, dev, g) for g in self.groups
-                        if self.sp.C % g == 0}
+                        if wide or self.sp.C % g == 0}
             if not any(resident.values()):
                 raise RuntimeError(
                     f"no group size of the megastep instance (V, K, T) = "
                     f"{(self.sp.V, self.sp.K, self.T)} with secondary terms "
                     f"{self.sec_terms} fits on the card: shared memory per block "
                     f"{ {g: self.smem_bytes(lib, g) for g in resident} } bytes")
-            self._groups[dev, N] = choose_group(N, resident, self.sp.C)
+            self._groups[dev, N] = (choose_width(N, resident) if wide
+                                    else choose_group(N, resident, self.sp.C))
         return self._groups[dev, N]
 
     def _chain_on(self, dev):
@@ -617,9 +680,9 @@ class Megastep(_StepKernel):
         N = genes.shape[-1]
         lib = self._lib(N)
         G = self.group(lib, dev, N) if group is None else group
-        if G not in self.groups or sp.C % G:
-            raise ValueError(f"group size {G} must be one of {self.groups} and divide "
-                             f"C = {sp.C}")
+        if G not in self.groups or (not self.instance.wide and sp.C % G):
+            raise ValueError(f"group size {G} must be one of {self.groups}"
+                             + ("" if self.instance.wide else f" and divide C = {sp.C}"))
         for t, r, nm in zip(state, self.state_rows,
                             ("genes", "grads", "sfit", "sol", "sol_fit",
                              "sol_tips")):

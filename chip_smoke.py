@@ -29,10 +29,10 @@ non-zero:
                     source's nvcc seconds, their ptxas reports and, per
                     kernel instance, registers, stack and spill; the
                     wide, high-DOF and generated instances' shared
-                    memory per block at every group size (the Python
+                    memory per block at every group width W (the Python
                     copy of the layout held equal to the header's) and
-                    resident blocks at each one built (or "does not
-                    fit");
+                    resident blocks and warps per SM at each one built
+                    (or "does not fit");
   check           — megastep vs plain version, noise-tensor mode, main-path
                     sizes (PR2, V=7, K=1, C=16, gens=8, mem_iters=8, two
                     steps, N=4096): ≥ 85 % of lanes agree, beside the plain
@@ -275,6 +275,7 @@ PEAK_BYTES = 3.35e12
 # the issue limit over all pipes
 IMAD_PER_SM_CLK = 64
 ALU_PER_SM_CLK = 64
+BLOCK_THREADS = 128    # threads per megastep block (csrc/megastep.cuh BLOCK)
 ISSUE_PER_SM_CLK = 128
 # FP32 instructions per SM and clock (4 × 32 lanes): an unfused multiply or
 # add is one FLOP, so kernels built without FMA (species, peak) reach at
@@ -721,11 +722,12 @@ class Smoke:
         for name, src in gen.items():
             self.kernels[name].update(generated=src, nvcc_s=BUILD_SECONDS[src])
         # the wide and high-DOF instances: shared memory per block at every
-        # G (those the source does not build too) and resident blocks at
-        # the G it builds (0: the block does not fit)
-        # and the generated ones, each with and without secondary terms; the
-        # Python copy of the layout (bio2_megastep.megastep_smem_bytes, which
-        # decides the group sizes a generated instance builds) must give the
+        # group size (G in the narrow layout, the width W in the wide one;
+        # those the source does not build too), resident blocks and warps
+        # per SM at those it builds (0: the block does not fit), and the
+        # generated ones, each with and without secondary terms; the Python
+        # copy of the layout (bio2_megastep.megastep_smem_bytes, which
+        # decides the widths a generated instance builds) must give the
         # bytes the header's layout() gives
         mismatch = []
         for robot, kinds, terms in [("arm", ("pose",), ()), ("arm", ("pose",), REG_TERMS),
@@ -737,8 +739,10 @@ class Smoke:
             mega, sp = self._wide(1, kinds, terms, robot=robot)
             lib = mega._lib(2)
             resident = {g: mega.resident_blocks(lib, self.dev, g) for g in mega.groups}
-            smem = {g: mega.smem_bytes(lib, g) for g in (1, 2, 4, 8)}
-            py = {g: mega.smem_bytes_py(g) for g in (1, 2, 4, 8)}
+            every = (2, 4, 8, 16, 32) if mega.instance.wide else (1, 2, 4, 8)
+            smem = {g: mega.smem_bytes(lib, g) for g in every}
+            py = {g: mega.smem_bytes_py(g) for g in every}
+            sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
             if smem != py:
                 mismatch.append((robot, kinds, terms, smem, py))
             emit({"phase": "build", "robot": robot,
@@ -749,7 +753,9 @@ class Smoke:
                   "smem_bytes_by_group": smem,
                   "resident_blocks_by_group": {g: r or "does not fit"
                                                for g, r in resident.items()},
-                  "groups_not_built": [g for g in (1, 2, 4, 8) if g not in mega.groups]})
+                  "resident_warps_per_sm_by_group": {g: r // sms * (BLOCK_THREADS // 32)
+                                                     for g, r in resident.items()},
+                  "groups_not_built": [g for g in every if g not in mega.groups]})
         if mismatch:
             raise AssertionError(f"the Python layout differs from the header's: {mismatch}")
         self.philox_sass = philox_sass_count()
@@ -3806,7 +3812,7 @@ def main():
             ("fullstep_humanoid", "megastep_high.cu", FULLSTEP_TPU),
             ("peak", "peak.cu", "tools/bench_mfu.py:85"))
             # the generated instances: the header, and the shape in "generated"
-            + tuple((name, "megastep.cuh", MEGASTEP_TPU) for name, *_ in GEN_CASES)
+            + tuple((name, "megastep_wide.cuh", MEGASTEP_TPU) for name, *_ in GEN_CASES)
             + ((GEN_SPECIES[0], "species.cuh", SPECIES_TPU),)]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -101,7 +101,7 @@ def test_wide_wrapper_takes_the_plain_version_on_cpu(dual):
     mega = Megastep(dual, TIPS, list(range(17)), [0, 1], sp, 1, sec_terms=TERMS,
                     inst_kind=KINDS)
     assert mega.source == "megastep_wide" and mega.ncol == 16
-    assert mega.groups == (1, 2, 4) and "gaux" in mega.const_names
+    assert mega.groups == (4, 8, 16) and "gaux" in mega.const_names
     state, consts, noise = tree_from_numpy(megastep_inputs(
         dual, TIPS, sp, 1, 32, inst_kind=KINDS, sec_terms=TERMS), "cpu")
     Megastep.launches = 0
@@ -189,7 +189,7 @@ def test_card_takes_the_dual_paths_and_names_the_gaps(dual):
     assert look.engine is not None                 # CPU: the plain version
     assert _on_card(look) is None
     inst = look.engine.mega.instance
-    assert inst.generated and inst.wide and inst.source == "megastep_gen_7_1_1_g124"
+    assert inst.generated and inst.wide and inst.source == "megastep_gen_7_1_1_g48"
     free = RobotModel.from_urdf_file(asset_path("free_arm.urdf"), device="cpu")
     s = IKSolver(free, [G.LookAtGoal(link="tool")])
     assert s.engine is None and "fullstep kernel" in s.unsupported

@@ -115,8 +115,7 @@ def test_choose_group_leaves_out_what_does_not_fit():
     assert choose_group(256, {1: 132, 2: 264, 4: 264}) == 4
     assert choose_group(256, {1: 132, 2: 264, 4: 0}) == 2
     assert choose_group(256, {1: 132, 2: 0, 4: 0}) == 1
-    # the snake's secondary-goal instance: G = 1 does not fit, G = 2 one
-    # block per SM, G = 4 two
+    # G = 1 does not fit, G = 2 one block per SM, G = 4 two
     assert choose_group(524288, {1: 0, 2: 132, 4: 264}) == 4
     with pytest.raises(ValueError, match="no group size fits"):
         choose_group(4096, {1: 0, 2: 0, 4: 0})
@@ -124,7 +123,8 @@ def test_choose_group_leaves_out_what_does_not_fit():
 
 def test_high_dof_wrappers_take_the_high_source():
     """Both instances live in csrc/megastep_high.cu (every goal kind, the
-    linearization in shared memory), at the group size 2 alone."""
+    wide layout: a lane over W threads, its vectors and linearization in
+    shared memory), at the widths W = 8 and 16."""
     assert MEGASTEP_SOURCES["megastep_high"] == ((32, 1, 1), (30, 3, 3))
     for name, ncol in (("snake", 32), ("humanoid", 22)):
         model, tips, kinds, terms = _robot(name)
@@ -132,7 +132,7 @@ def test_high_dof_wrappers_take_the_high_source():
         mega = Megastep(model, tips, list(range(V)), list(range(K)),
                         SpeciesParams(V=V, K=K), 1, sec_terms=terms, inst_kind=kinds)
         assert mega.source == "megastep_high" and mega.ncol == ncol
-        assert mega.groups == (2,)
+        assert mega.groups == (8, 16)
 
 
 def test_humanoid_whole_body_solve_cpu():

@@ -73,36 +73,36 @@ def _goals(spec):
 # the prebuilt instances' own paths
 CONFIGS = [
     ("pr2_arm_pose_lookat", "pr2_arm.urdf", [("pose", ARM), ("lookat", ARM)],
-     (7, 2, 1), "megastep_gen_7_2_1_g124", (1, 2, 4)),
+     (7, 2, 1), "megastep_gen_7_2_1_g48", (4, 8)),
     ("pr2_arm_position_lookat", "pr2_arm.urdf", [("position", ARM), ("lookat", ARM)],
-     (7, 2, 1), "megastep_gen_7_2_1_g124", (1, 2, 4)),
+     (7, 2, 1), "megastep_gen_7_2_1_g48", (4, 8)),
     ("pr2_arm_pose_line_maxd_cone", "pr2_arm.urdf",
      [("pose", ARM), ("line", ARM), ("max_distance", ARM), ("cone", ARM)],
-     (7, 4, 1), "megastep_gen_7_4_1_g124", (1, 2, 4)),
+     (7, 4, 1), "megastep_gen_7_4_1_g48", (4, 8)),
     ("pr2_dual_multigoal_head", "pr2_dual.urdf",
      [("pose", DUAL[0]), ("pose", DUAL[1]), ("lookat", DUAL[2])] + list(REGS),
-     (17, 3, 3), "megastep_gen_17_3_3_g124", (1, 2, 4)),
+     (17, 3, 3), "megastep_gen_17_3_3_g4816", (4, 8, 16)),
     ("pr2_dual_one_pose", "pr2_dual.urdf", [("pose", DUAL[0])],
-     (17, 1, 1), "megastep_gen_17_1_1_g124", (1, 2, 4)),
+     (17, 1, 1), "megastep_gen_17_1_1_g4816", (4, 8, 16)),
     ("ur5_pose_lookat", "ur5.urdf", [("pose", "tool0"), ("lookat", "tool0")],
-     (6, 2, 1), "megastep_gen_6_2_1_g124", (1, 2, 4)),
+     (6, 2, 1), "megastep_gen_6_2_1_g48", (4, 8)),
     ("humanoid_two_hands", "humanoid.urdf", [("pose", "r_hand"), ("pose", "l_hand")],
-     (30, 2, 2), "megastep_gen_30_2_2_g2", (2,)),
+     (30, 2, 2), "megastep_gen_30_2_2_g816", (8, 16)),
     ("free_arm_position_orientation", "free_arm.urdf",
      [("position", "tool"), ("orientation", "tool")], (10, 2, 8), "species_gen_10_2_8", None),
     ("planar_arm_position_orientation", "planar_arm.urdf",
      [("position", "tool"), ("orientation", "tool")], (5, 2, 0), "species_gen_5_2_0", None),
     ("pr2_arm_lookat_alone", "pr2_arm.urdf", [("lookat", ARM)],
-     (7, 1, 1), "megastep_gen_7_1_1_g124", (1, 2, 4)),
+     (7, 1, 1), "megastep_gen_7_1_1_g48", (4, 8)),
     ("pr2_arm_pose", "pr2_arm.urdf", [("pose", ARM)], (7, 1, 1), "megastep", (1, 2, 4, 8)),
     ("ur5_pose", "ur5.urdf", [("pose", "tool0")], (6, 1, 1), "megastep", (1, 2, 4, 8)),
     ("pr2_dual_pose2", "pr2_dual.urdf", [("pose", DUAL[0]), ("pose", DUAL[1])],
-     (17, 2, 2), "megastep_wide", (1, 2, 4)),
+     (17, 2, 2), "megastep_wide", (4, 8, 16)),
     ("snake32_position", "snake.urdf", [("position", "head")] + list(REGS),
-     (32, 1, 1), "megastep_high", (2,)),
+     (32, 1, 1), "megastep_high", (8, 16)),
     ("humanoid_whole_body", "humanoid.urdf",
      [("pose", "r_hand"), ("pose", "l_hand"), ("pose", "head")],
-     (30, 3, 3), "megastep_high", (2,)),
+     (30, 3, 3), "megastep_high", (8, 16)),
     ("free_arm_position", "free_arm.urdf", [("position", "tool")], (10, 1, 8), "species", None),
 ]
 
@@ -149,7 +149,7 @@ def test_generated_source_text_and_its_hash(tmp_path, monkeypatch):
                     SpeciesParams(V=7, K=2), 1, inst_kind=("pose", "lookat")).instance
     text, flags = build._generated[inst.source]
     assert "#define SHAPES(X) X(7, 2, 1)\n" in text
-    assert "#define GROUPS(X, v, k, t) X(v, k, t, 1) X(v, k, t, 2) X(v, k, t, 4)\n" in text
+    assert "#define GROUPS(X, v, k, t) X(v, k, t, 4) X(v, k, t, 8)\n" in text
     assert "#define MEGASTEP_WIDE 1\n" in text and '#include "megastep.cuh"' in text
     assert flags == ["--split-compile=0"]
     assert build.source_path(inst.source) == os.path.join(build.GEN_DIR,
@@ -224,37 +224,45 @@ def test_a_source_building_in_another_thread_is_waited_for(tmp_path, monkeypatch
 
 
 def test_layout_copy_holds_the_recorded_block_sizes():
-    """The Python copy of ``layout()`` (csrc/megastep.cuh) at the high-DOF
-    instances: 164 KiB a snake block at G = 1 and 308 KiB with secondary
-    goals, 128 and 264 KiB for the humanoid (csrc/megastep_high.cu, PERF.md
-    §6); the species block of 128 lanes, 110.6 KB at (10, 1, 8) and 151.6 KB
-    at (10, 2, 8) (csrc/species.cuh)."""
-    for urdf, tips, K, want in (("snake.urdf", ["head"], 1, (164, 308)),
+    """The Python copy of the wide layout (csrc/megastep_wide.cuh) at the
+    high-DOF instances: a snake block 38.4 KiB at W = 16 and 43.9 KiB with
+    secondary goals (72.7 / 83.7 KiB at W = 8), the humanoid's 36.8 and
+    42.0 KiB (70.4 / 80.7) — every block far below the card's limit, where
+    the layout that kept a lane in one thread took 164 / 308 and 128 / 264
+    KiB at G = 1; the species block of 128 lanes, 110.6 KB at (10, 1, 8) and
+    151.6 KB at (10, 2, 8) (csrc/species.cuh)."""
+    for urdf, tips, K, want in (("snake.urdf", ["head"], 1, ((74416, 39312), (85680, 44944))),
                                 ("humanoid.urdf", ["r_hand", "l_hand", "head"], 3,
-                                 (128, 264))):
+                                 ((72056, 37656), (82680, 42968)))):
         m = _model(urdf)
         V = m.nvars
         megas = [Megastep(m, tips, list(range(V)), list(range(K)), SpeciesParams(V=V, K=K),
                           1, sec_terms=terms) for terms in ((), ("beta", "gamma"))]
-        assert tuple(round(mega.smem_bytes_py(1) / 1024) for mega in megas) == want
-        assert megas[1].smem_bytes_py(2) <= SMEM_OPTIN
+        assert tuple((mega.smem_bytes_py(8), mega.smem_bytes_py(16)) for mega in megas) == want
+        assert max(megas[1].smem_bytes_py(w) for w in megas[1].groups) <= SMEM_OPTIN
     assert species_smem_bytes(10, 1, 16, 0) == 110592
     assert species_smem_bytes(10, 2, 16, 0) == 151552
     assert species_smem_bytes(10, 4, 16, 0) == 233472 > SMEM_OPTIN
 
 
 def test_generated_instances_build_only_the_group_sizes_that_fit():
-    """A generated instance leaves out a group size whose block exceeds the
+    """A generated instance leaves out a group width whose block exceeds the
     card's shared memory (and is named by the rest); where none fits the
-    resolver raises, naming the bytes by group size."""
+    resolver raises, naming the bytes by width.  The wide layout's block
+    holds BLOCK / W lanes of a few KB, so it takes many tips and columns:
+    (23, 6, 6) with 111 columns drops W = 4 with secondary goals (234 712
+    bytes) and keeps it without (218 072); (40, 32, 16) with 640 columns
+    fits at no width."""
     sec = sec_term_mask(("beta", "gamma"))
-    inst = megastep_instance(20, 3, 3, ["pose"] * 3, sec, chain=(40, 0, 40))
-    assert inst.generated and inst.groups == (2, 4)
-    assert inst.source == "megastep_gen_20_3_3_g24"
-    assert megastep_smem_bytes(20, 40, 0, 16, 1, sec, 40, 3, 3) > SMEM_OPTIN
-    assert megastep_instance(20, 3, 3, ["pose"] * 3, 0, chain=(40, 0, 40)).groups == (1, 2, 4)
-    with pytest.raises(ValueError, match=r"232448 bytes.*\{2: \d+\} bytes by group size"):
-        megastep_instance(40, 8, 8, ["pose"] * 8, sec, chain=(40, 0, 320))
+    inst = megastep_instance(23, 6, 6, ["pose"] * 6, sec, chain=(40, 0, 111))
+    assert inst.generated and inst.groups == (8, 16)
+    assert inst.source == "megastep_gen_23_6_6_g816"
+    assert megastep_smem_bytes(23, 40, 0, 16, 4, sec, 111, 6, 6) == 234712 > SMEM_OPTIN
+    assert megastep_smem_bytes(23, 40, 0, 16, 4, 0, 111, 6, 6) == 218072
+    assert megastep_instance(23, 6, 6, ["pose"] * 6, 0,
+                             chain=(40, 0, 111)).groups == (4, 8, 16)
+    with pytest.raises(ValueError, match=r"232448 bytes.*\{8: \d+, 16: \d+\} bytes by group size"):
+        megastep_instance(40, 32, 16, ["pose"] * 32, sec, chain=(40, 0, 640))
 
 
 def test_card_reason_names_a_block_that_does_not_fit():

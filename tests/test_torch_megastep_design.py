@@ -3,7 +3,11 @@
 ``csrc/megastep.cu`` splits a lane's children over a group of G threads
 and merges their best two by shuffles; it ranks the secondary pre-selection
 across the group; it draws its randomness with a lean word mapping
-(``bio2_megastep.philox_draw``).  None of that runs here, so these tests
+(``bio2_megastep.philox_draw``).  The wide layout (``csrc/megastep_wide.cuh``)
+runs a lane over a group of W threads: the children's genes by (child,
+quad) items whose Philox calls no two items share, the merge and ranking
+over the group, the lane's vectors in a region of shared memory whose size
+the wrapper mirrors.  None of that runs here, so these tests
 hold plain emulations of the kernel's algorithms to the sequential scan
 and to ``bio2_step.preselect``, and the plain draw mapping to an
 independent pure-Python Philox.  The kernel itself is held to them on the
@@ -32,8 +36,12 @@ from bio_ik_tpu_torch.kernels.bio2_megastep import (
     _branch_slots,
     array_draw,
     choose_group,
+    choose_width,
+    clt4_calls,
+    megastep_smem_bytes,
     philox_calls_per_lane_step,
     philox_draw,
+    wide_widths,
 )
 from bio_ik_tpu_torch.kernels.bio2_step import SpeciesParams, preselect
 from bio_ik_tpu_torch.kernels.checks import lane_agreement, megastep_inputs
@@ -123,8 +131,13 @@ def _pools(kind, n=1500, seed=0):
     return f.astype(np.float32).astype(float)
 
 
+# the group sizes of the narrow layout and the widths of the wide one
+GROUP_SIZES = sorted(set(MEGASTEP_GROUPS["megastep"]) | set(MEGASTEP_GROUPS["megastep_wide"])
+                     | set(MEGASTEP_GROUPS["megastep_high"]))
+
+
 @pytest.mark.parametrize("kind", ["random", "ties", "nonfinite"])
-@pytest.mark.parametrize("G", MEGASTEP_GROUPS["megastep"])
+@pytest.mark.parametrize("G", GROUP_SIZES)
 def test_group_best_two_is_the_sequential_scan(G, kind):
     for f in _pools(kind, seed=G):
         assert group_select(list(f), G) == scan_select(list(f)), f
@@ -175,6 +188,34 @@ def test_group_ranking_is_preselect(G):
                         rank[k] += bool(sv < sc or (sv == sc and cj < c))
             for k, c in enumerate(own):
                 kept[c] = rank[k] < kcount[0, lane]
+        assert kept.tolist() == want[:, lane].tolist()
+
+
+@pytest.mark.parametrize("W", sorted(set(MEGASTEP_GROUPS["megastep_wide"])
+                                     | set(MEGASTEP_GROUPS["megastep_high"])))
+def test_wide_group_ranking_is_preselect(W):
+    """The wide layout's pre-selection: thread j ranks its children c = k·W
+    + j against the C values in the lane's shared memory (s_j < s_c, or
+    equal and j < c), kept iff the rank is below int(keep·(C−1)) + 1 — the
+    children preselect keeps, with W above C (threads with no child) too."""
+    r = np.random.default_rng(W)
+    n = 400
+    s = r.integers(0, 6, (C, n)).astype(np.float32)
+    s[r.uniform(size=s.shape) < 0.05] = np.nan
+    s[:, :40] = 2.0
+    keep = r.uniform(size=(1, n)).astype(np.float32)
+    fit = np.zeros((C + 2, n), np.float32)
+    want = preselect(torch.from_numpy(fit), torch.from_numpy(s),
+                     torch.from_numpy(keep), C)[2:] == 0.0
+    kcount = (keep * (C - 1)).astype(np.int32) + 1
+    for lane in range(n):
+        kept = np.zeros(C, bool)
+        for j in range(W):
+            for c in range(j, C, W):
+                sc = s[c, lane]
+                rank = sum(bool(s[jj, lane] < sc or (s[jj, lane] == sc and jj < c))
+                           for jj in range(C))
+                kept[c] = rank < kcount[0, lane]
         assert kept.tolist() == want[:, lane].tolist()
 
 
@@ -278,6 +319,98 @@ def test_clt4_integer_sum_matches_the_float_formula():
 # ---- launch shape ---------------------------------------------------------
 
 
+def quad_calls(V, q):
+    """The Philox calls of a child that the wide layout's item for variables
+    4q … 4q+3 makes (csrc/megastep_wide.cuh ``child_quad``: calls 3q … 3q+2
+    of the child's ceil(3V/4)), and for each of those variables the three
+    words of the child's stream its Gaussian's four 24-bit fields fill
+    (words 3v … 3v+2: 96 bits)."""
+    calls = [k for k in range(3 * q, 3 * q + 3) if k < clt4_calls(V)]
+    words = {v: (3 * v, 3 * v + 1, 3 * v + 2) for v in range(4 * q, min(4 * q + 4, V))}
+    return calls, words
+
+
+@pytest.mark.parametrize("V", [7, 17, 30, 32])
+def test_quad_items_make_each_call_once_and_give_the_packed_gaussians(V):
+    """The wide layout's child items: (child c, quad q) for q < ceil(V/4),
+    item i on thread i mod W.  Each of a child's ceil(3V/4) Philox calls is
+    made by exactly one item, and the Gaussians an item forms from its
+    twelve words (fields 4i … 4i+3 of them for variable 4q + i) are those
+    of packed_fields and clt4_from_fields over the child's whole word
+    string — philox_draw's, so the bits are unchanged."""
+    nq = (V + 3) // 4
+    made = []
+    for q in range(nq):
+        calls, words = quad_calls(V, q)
+        made += calls
+        assert all(w // 4 in calls for ws in words.values() for w in ws)
+    assert sorted(made) == list(range(clt4_calls(V)))
+    for W in (4, 8, 16, 32):        # the lane's calls of a generation over its threads
+        owner = {}
+        for it in range(C * nq):
+            c, q = divmod(it, nq)
+            for k in quad_calls(V, q)[0]:
+                assert (c, k) not in owner
+                owner[c, k] = it % W
+        assert len(owner) == C * clt4_calls(V)
+        assert max(owner.values()) < W
+    n = 64
+    lane = torch.arange(n, dtype=torch.int64)[None]
+    salt = (torch.arange(n, dtype=torch.int64)[None] * 7919) & 0xFFFFFFFF
+    nc = clt4_calls(V)
+    for c in (0, 5, 15):
+        idx = torch.arange(c * nc, (c + 1) * nc, dtype=torch.int64)[:, None]
+        w = torch.stack(philox_words(3, lane, 1, 2, idx, salt), 1).reshape(4 * nc, n)
+        f = packed_fields(list(w.unbind(0)), 4 * V)
+        want = torch.stack([clt4_from_fields(f[4 * v:4 * v + 4]) for v in range(V)])
+        for q in range(nq):
+            calls, words = quad_calls(V, q)
+            local = torch.cat([w[4 * k:4 * k + 4] for k in calls]
+                              + [torch.zeros((12 - 4 * len(calls), n), dtype=w.dtype)])
+            lf = packed_fields(list(local.unbind(0)), 16)
+            for i, v in enumerate(sorted(words)):
+                got = clt4_from_fields(lf[4 * i:4 * i + 4])
+                assert torch.equal(got, want[v]), (V, c, v)
+
+
+def test_wide_layout_bytes_by_hand():
+    """The Python copy of wide_layout() (csrc/megastep_wide.cuh) at the
+    prebuilt and generated instances, against the words counted by hand:
+    block tables nlinks·(7 + 19 + 2) + V·(T + K) + K + K·V + 2K + T, then
+    (128 / W) lanes of an odd number of words — 8V; the secondary rows the
+    terms read (beta and gamma: beta, seed, gamma, mid, hspan, 5V; all four
+    terms 8V); V + 7T; the children's block max(max(C, 13)·(V | 1),
+    7·nlinks); 7·ncol; 7T; 12K; 14K; 7K; 2K; C with secondary terms; 8."""
+    # the humanoid (30, 3, 3): 19 links, 22 columns
+    block = 19 * 28 + 30 * 6 + 3 + 90 + 6 + 3                                # 814
+    lane = 240 + 30 + 21 + 16 * 31 + 154 + 21 + 36 + 42 + 21 + 6 + 8         # 1075
+    assert megastep_smem_bytes(30, 19, 1, 16, 16, 0, 22, 3, 3) == 4 * (block + lane * 8)
+    lane_sec = lane + 150 + 16                                                # 1241
+    assert megastep_smem_bytes(30, 19, 1, 16, 8, 6, 22, 3, 3) == 4 * (block + lane_sec * 16)
+    # snake-32 (32, 1, 1): 34 links, 32 columns; an even count rounds up
+    block = 34 * 28 + 32 * 2 + 1 + 32 + 2 + 1                                 # 1052
+    lane = 256 + 32 + 7 + 16 * 33 + 224 + 7 + 12 + 14 + 7 + 2 + 8            # 1097
+    assert megastep_smem_bytes(32, 34, 0, 16, 16, 0, 32, 1, 1) == 4 * (block + lane * 8)
+    assert megastep_smem_bytes(32, 34, 0, 16, 8, 15, 32, 1, 1) == \
+        4 * (block + (lane + 256 + 16) * 16)
+    # the PR2 dual arm (17, 2, 2): 18 links, 16 columns
+    block = 18 * 28 + 17 * 4 + 2 + 34 + 4 + 2                                 # 614
+    lane = 136 + 17 + 14 + 16 * 17 + 112 + 14 + 24 + 28 + 14 + 4 + 8         # 643
+    assert megastep_smem_bytes(17, 18, 0, 16, 8, 0, 16, 2, 2) == 4 * (block + lane * 16)
+    # generated: the dual arm with the head (17, 3, 3), 20 links, 19
+    # columns, with secondary terms; the humanoid's hands (30, 2, 2)
+    block = 20 * 28 + 17 * 6 + 3 + 51 + 6 + 3                                 # 725
+    lane = 136 + 85 + 17 + 21 + 16 * 17 + 133 + 21 + 36 + 42 + 21 + 6 + 16 + 8   # 814
+    assert megastep_smem_bytes(17, 20, 0, 16, 8, 6, 19, 3, 3) == 4 * (block + 815 * 16)
+    block = 17 * 28 + 30 * 4 + 2 + 60 + 4 + 2                                 # 664
+    lane = 240 + 30 + 14 + 16 * 31 + 126 + 14 + 24 + 28 + 14 + 4 + 8         # 998
+    assert megastep_smem_bytes(30, 17, 0, 16, 16, 0, 18, 2, 2) == 4 * (block + 999 * 8)
+    # few children and a long chain: the frames (7·nlinks) size the block
+    block = 40 * 28 + 7 * 2 + 1 + 7 + 2 + 1                                   # 1145
+    lane = 56 + 7 + 7 + 280 + 49 + 7 + 12 + 14 + 7 + 2 + 8                    # 449
+    assert megastep_smem_bytes(7, 40, 0, 4, 4, 0, 7, 1, 1) == 4 * (block + lane * 32)
+
+
 def test_branch_slots_keep_only_non_adjacent_parents():
     tm = RobotModel.from_urdf_file(asset_path("pr2_arm.urdf"), device="cpu")
     mega = Megastep(tm, [TIP], list(range(7)), [0], SpeciesParams(V=7, K=1), 1)
@@ -303,6 +436,28 @@ def test_group_rule_fills_the_card():
     for res in (pose, sec):
         assert choose_group(4096, res, C=4) == 4 and choose_group(256, res) == 8
         assert choose_group(1 << 20, res) == 1
+
+
+@pytest.mark.parametrize("path,lanes,blocks_per_sm,want", [
+    ("pr2_dual_pose2", 32768, {4: 2, 8: 4, 16: 4}, 8),
+    ("pr2_dual_multigoal", 131072, {4: 2, 8: 4, 16: 4}, 8),
+    ("humanoid_whole_body", 32768, {8: 3, 16: 4}, 16),
+    ("humanoid_whole_body_mm", 8192, {8: 3, 16: 4}, 16),
+    ("snake32_position", 524288, {8: 3, 16: 4}, 8),
+    ("shapes_main_ii_17x3x3", 32768, {4: 2, 8: 4, 16: 4}, 8),
+    ("shapes_main_v_30x2x2", 32768, {8: 3, 16: 4}, 16),
+    ("shapes_main_i_7x2x1", 131072, {4: 4, 8: 4}, 4),
+    ("shapes_main_i_last", 8384, {4: 4, 8: 4}, 8),
+    ("shapes_main_iv_7x1x1_second", 39320, {4: 4, 8: 4}, 4),
+])
+def test_width_rule_at_the_paths_launch_shapes(path, lanes, blocks_per_sm, want):
+    """choose_width at each path's first launch (and the arm lookat
+    ladder's last), with the blocks per SM an H100's 132 SMs hold of each
+    instance's wide layout (shared memory, or the 128-register cap of 4
+    blocks): the width that ran fastest there on that card (PERF.md §6)."""
+    assert choose_width(lanes, {w: b * 132 for w, b in blocks_per_sm.items()}) == want
+    with pytest.raises(ValueError, match="no group width fits"):
+        choose_width(lanes, dict.fromkeys(blocks_per_sm, 0))
 
 
 def test_tree_from_numpy_defaults_to_the_card():

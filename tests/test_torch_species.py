@@ -334,7 +334,7 @@ def test_kernel_shape_gap_is_rejected():
     snake = _model("snake.urdf")
     s = IKSolver(snake, [G.PositionGoal(link="head")], fixed_joints=[snake.joint_names[2]])
     assert FusedBio2Engine.supports(s) is None          # CPU: plain version
-    assert on_card(s) is None and s.engine.mega.source == "megastep_gen_31_1_1_g2"
+    assert on_card(s) is None and s.engine.mega.source == "megastep_gen_31_1_1_g816"
     free = _model("free_arm.urdf")
     s = IKSolver(free, [G.PositionGoal(link="tool")], fixed_joints=["j3"])
     assert on_card(s) is None and s.engine.kernel.source.startswith("species_gen_9_1_")
